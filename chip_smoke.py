@@ -5,17 +5,30 @@
 
 Phases, in order; any failure exits non-zero and nothing is caught:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the fed_agg CUDA kernel from src/repro_torch/kernels/fed_agg/csrc;
-  3. hold the kernel against its plain version over K x N x dtype, with its
+  2. build the CUDA kernels from src/repro_torch/kernels/*/csrc, one nvcc
+     per source, all started together;
+  3. hold fed_agg against its plain version over K x N x dtype, with its
      time, the plain version's, one torch.einsum call's (a yardstick the
      port never calls) and the least time the card could take;
-  4. the main path: the port's quickstart on the card (Alg. 2, async, 80
-     merges, seed 0), which must launch the kernel; the same run at seeds
+  4. the quickstart path: the port's quickstart on the card (Alg. 2, async,
+     80 merges, seed 0), which must launch fed_agg; the same run at seeds
      1-7, whose median best accuracy must be within 0.03 of the JAX
      quickstart's median over the same seeds; then a 3-round sync run
      twice, through the kernel and through the plain version, which must
-     agree;
-  5. print the kernel table as JSON, then the result line.
+     agree, and once through a 2-cell fog tier, which must match the flat
+     run;
+  5. hold the quant8 kernels (quantise, dequantise) against their plain
+     version over C x rows x dtype with NaN/inf rows, bit for bit, with
+     their times, the plain version's, one `q * scale` call's and the
+     bound, and at the five leaf shapes of one P = 8 exchange;
+  6. the exchange path: examples/fl_exchange at P = 2, 4, 8 in the modes
+     f32, q8, topk and q8_topk, flat and two-tier, through the kernels and
+     through the plain version (equal outputs; wire MB equal to the JAX
+     benchmark's BENCH_exchange.json); one flat q8 exchange must be 10
+     quant8 launches; then 4 islands of flight-cnn-mnist, 3 rounds of one
+     local epoch and a q8 exchange through 2 fog cells, through the
+     kernels and the plain version, which must give equal final params;
+  7. print the kernel table as JSON, then the result line.
 """
 from __future__ import annotations
 
@@ -24,6 +37,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -41,6 +55,13 @@ JAX_BEST_ACC = {0: 0.7998, 1: 0.9092, 2: 0.9424, 3: 0.9121,
                 4: 0.9307, 5: 0.8828, 6: 0.9189, 7: 0.7080}
 ACC_TOL = 0.03
 MAIN_SHAPE = (2, 20_490, "float32")   # async merge of flight-cnn-mnist
+# quant8 sweep: row width C (5: odd; 256: the exchange's matrices; 1027:
+# its bias; 4096; 151,936: an LM head's vocabulary row) x total elements
+Q8_WIDTHS = (5, 256, 1027, 4096, 151_936)
+Q8_TOTALS = (1 << 10, 1 << 14, 1 << 18, 1 << 22, 1 << 26)
+Q8_OPS_PER_ELEMENT = {"quantize": 5, "dequantize": 1}   # abs, max, divide,
+#                                  round, clamp; multiply (fp32, no tensor core)
+EXCHANGE_P = 8                     # the exchange's leaf shapes at P islands
 
 
 def check(ok: bool, msg: str):
@@ -129,6 +150,168 @@ def kernel_sweep(torch, np):
     return rows
 
 
+def bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """Least time (ms) the card could take and what bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def poisoned_rows(torch, R: int, C: int, dtype, seed: int):
+    """(R, C) normal rows over four decades of scale on the card; rows 0-3
+    (as far as there are rows) hold a NaN, a +inf, a -inf, zeros only."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(R, C, generator=g, device="cuda")
+    x *= 10.0 ** (torch.rand(R, 1, generator=g, device="cuda") * 4 - 2)
+    for r, (c, v) in enumerate([(C // 2, float("nan")), (C - 1, float("inf")),
+                                (0, float("-inf"))][:R]):
+        x[r, c] = v
+    if R > 3:
+        x[3] = 0.0
+    return x.to(dtype)
+
+
+def quant8_row(torch, x, out_dtype, *, check_nonfinite: bool):
+    """Hold both quant8 kernels against their plain version on x (R, C),
+    bit for bit, and time them; -> one record per kernel."""
+    from repro_torch.kernels.quant8 import kernel as q8
+    from repro_torch.kernels.quant8.ref import (dequantize_rows_ref,
+                                                quantize_rows_ref)
+    R, C = x.shape
+    q, s = q8.quantize_rows_cuda(x)
+    qr, sr = quantize_rows_ref(x)
+    out = q8.dequantize_rows_cuda(q, s, out_dtype)
+    outr = dequantize_rows_ref(q, s, out_dtype)
+    torch.cuda.synchronize()
+    check(torch.equal(q, qr), f"quant8 q differs from ref.py at {R}x{C}")
+    torch.testing.assert_close(s, sr, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(out, outr, rtol=0, atol=0, equal_nan=True)
+    if check_nonfinite:
+        bad = min(R, 3)
+        check(not q[:bad].any() and not torch.isfinite(s[:bad]).any(),
+              f"quant8 NaN/inf rows at {R}x{C}: q not 0 or scale finite")
+    q_err = int((q.int() - qr.int()).abs().max())
+    fin = torch.isfinite(outr)
+    d_err = float((out.float() - outr.float())[fin].abs().max()) \
+        if fin.any() else 0.0
+    iters = 200 if R * C <= 1 << 18 else 20
+    n, itemsize, out_size = R * C, x.element_size(), out.element_size()
+    recs = {}
+    for name, kern, plain, lib, nbytes in (
+            ("quantize", lambda: q8.quantize_rows_cuda(x),
+             lambda: quantize_rows_ref(x), None,
+             n * itemsize + n + 4 * R),
+            ("dequantize", lambda: q8.dequantize_rows_cuda(q, s, out_dtype),
+             lambda: dequantize_rows_ref(q, s, out_dtype),
+             (lambda: torch.mul(q, s)) if out_dtype == torch.float32
+             else None,
+             n + 4 * R + n * out_size)):
+        b_ms, b_by = bound(nbytes, Q8_OPS_PER_ELEMENT[name] * n)
+        recs[name] = {
+            "rows": R, "C": C, "dtype": str(x.dtype).split(".")[-1],
+            "max_abs_err": q_err if name == "quantize" else d_err,
+            "ms": graph_ms(torch, kern, iters),
+            "plain_ms": graph_ms(torch, plain, iters),
+            "library_ms": None if lib is None else graph_ms(torch, lib,
+                                                             iters),
+            "call_ms": eager_ms(torch, kern, iters),
+            "bound_ms": b_ms, "bound_by": b_by}
+    return recs
+
+
+def quant8_sweep(torch):
+    """Rows of C x total elements x dtype, each with NaN/inf rows."""
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for C in Q8_WIDTHS:
+            for R in dict.fromkeys(max(1, t // C) for t in Q8_TOTALS):
+                x = poisoned_rows(torch, R, C, dtype, seed=R * C)
+                rec = quant8_row(torch, x, dtype, check_nonfinite=True)
+                rows.append(rec)
+                qz, dq = rec["quantize"], rec["dequantize"]
+                lib = "-" if dq["library_ms"] is None \
+                    else f"{dq['library_ms'] * 1e3:.2f}"
+                print(f"quant8 C={C} rows={R} {qz['dtype']}: quantize "
+                      f"{qz['ms'] * 1e3:.2f} us (plain "
+                      f"{qz['plain_ms'] * 1e3:.2f}, bound "
+                      f"{qz['bound_ms'] * 1e3:.2f} {qz['bound_by']}, "
+                      f"{qz['bound_ms'] / qz['ms']:.1%}) | dequantize "
+                      f"{dq['ms'] * 1e3:.2f} us (plain "
+                      f"{dq['plain_ms'] * 1e3:.2f}, q*s {lib}, bound "
+                      f"{dq['bound_ms'] * 1e3:.2f}, "
+                      f"{dq['bound_ms'] / dq['ms']:.1%}); bit-equal, "
+                      "NaN/inf rows q=0", flush=True)
+                del x
+    return rows
+
+
+def quant8_exchange_shapes(torch):
+    """Both kernels at the leaf shapes one flat q8 exchange of P = 8
+    islands gives them (the fp32 deltas, rows = P x leading dims), summed
+    over the five leaves."""
+    from repro_torch.examples import fl_exchange
+    stacked, base = fl_exchange.make_tree(EXCHANGE_P, device="cuda")
+    total = {}
+    for name in sorted(stacked):
+        delta = stacked[name].float() - base[name].float()
+        x = delta.reshape(-1, delta.shape[-1]).contiguous()
+        rec = quant8_row(torch, x, torch.float32, check_nonfinite=False)
+        print(f"quant8 exchange leaf {name} {tuple(x.shape)}: quantize "
+              f"{rec['quantize']['ms'] * 1e3:.2f} us, dequantize "
+              f"{rec['dequantize']['ms'] * 1e3:.2f} us", flush=True)
+        for k, r in rec.items():
+            t = total.setdefault(k, {"max_abs_err": 0, "ms": 0.0,
+                                     "plain_ms": 0.0, "library_ms": 0.0,
+                                     "call_ms": 0.0, "bound_ms": 0.0,
+                                     "bytes_bound": True, "rows": 0,
+                                     "elements": 0})
+            t["max_abs_err"] = max(t["max_abs_err"], r["max_abs_err"])
+            for f in ("ms", "plain_ms", "call_ms", "bound_ms"):
+                t[f] += r[f]
+            t["library_ms"] = None if r["library_ms"] is None or \
+                t["library_ms"] is None else t["library_ms"] + r["library_ms"]
+            t["bytes_bound"] &= r["bound_by"] == "bytes"
+            t["rows"] += x.shape[0]
+            t["elements"] += x.numel()
+    for k, t in total.items():
+        t["bound_by"] = "bytes" if t.pop("bytes_bound") else "operations"
+        lib = "none" if t["library_ms"] is None \
+            else f"{t['library_ms'] * 1e3:.2f} us"
+        print(f"quant8 {k} over one P={EXCHANGE_P} exchange ({t['rows']} "
+              f"rows, {t['elements']} elements): {t['ms'] * 1e3:.2f} us "
+              f"device, {t['call_ms'] * 1e3:.2f} us in Python calls, plain "
+              f"{t['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
+              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})", flush=True)
+    return total
+
+
+def exchange_path(torch):
+    """The exchange entry point at P = 2, 4, 8 x 4 modes, flat and
+    two-tier, through the kernels; -> the per-cell outputs for the plain
+    comparison."""
+    from repro_torch.examples import fl_exchange
+    committed = json.loads((ROOT / "BENCH_exchange.json").read_text())
+    outputs = {}
+    for fog_cells in (1, 2):
+        cells, outs = fl_exchange.run("cuda", fog_cells=fog_cells)
+        parity = fl_exchange.measure_parity("cuda", fog_cells=fog_cells)
+        bad = fl_exchange.check_invariants(cells, parity)
+        check(not bad, f"fl_exchange invariants: {bad}")
+        tier = "flat" if fog_cells == 1 else f"{fog_cells} fog cells"
+        for name, c in cells.items():
+            want = committed["cells"][name]["wire_mb_per_round"]
+            check(c["wire_mb_per_round"] == want,
+                  f"{name}: wire {c['wire_mb_per_round']} MB != {want}")
+            print(f"fl_exchange {tier} P={c['islands']} {c['mode']}: "
+                  f"{c['wire_mb_per_round']} MB/round (benchmark {want}), "
+                  f"{c['reduction_vs_f32']}x vs f32, "
+                  f"{c['exchange_ms']:.4f} ms/exchange (CUDA events)",
+                  flush=True)
+        print(f"fl_exchange {tier}: parity {parity}", flush=True)
+        outputs[fog_cells] = outs
+    return outputs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -137,8 +320,10 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from repro_torch.examples import quickstart
+    from repro_torch.core.hierarchy import FogTopology
+    from repro_torch.examples import fl_exchange, quickstart
     from repro_torch.kernels.fed_agg import kernel
+    from repro_torch.kernels.quant8 import kernel as q8
     from repro_torch.runtime import resolve_device
     from repro_torch.tree import leaves
 
@@ -151,11 +336,15 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    # 2. build from the checkout's sources
-    t0 = time.perf_counter()
-    lib_path = kernel.library()._name
-    print(f"built fed_agg in {time.perf_counter() - t0:.1f} s -> "
-          f"{Path(lib_path).relative_to(ROOT)}", flush=True)
+    # 2. build from the checkout's sources, one nvcc per source at once
+    def build(name, library):
+        t0 = time.perf_counter()
+        path = Path(library()._name).relative_to(ROOT)
+        return f"built {name} in {time.perf_counter() - t0:.1f} s -> {path}"
+    with ThreadPoolExecutor() as pool:
+        for line in pool.map(build, ("fed_agg", "quant8"),
+                             (kernel.library, q8.library)):
+            print(line, flush=True)
 
     # 3. kernel vs plain version (launches here are not the main path's)
     rows = kernel_sweep(torch, np)
@@ -212,18 +401,102 @@ def main() -> int:
     print(f"sync all-policy, {rounds} rounds: kernel vs plain merge "
           f"acc gap {acc_gap:.4g}, final params max |diff| {param_gap:.3g}, "
           f"{nk / rounds:.0f} fed_agg launch per round", flush=True)
+    # the same rounds folded edge -> fog -> cloud: 2 cells + the cloud
+    kernel.fed_agg_cuda.launches = 0
+    sim = quickstart.make_simulation("cuda", policy="all", mode="sync")
+    sim.server.topology = FogTopology.round_robin(sim.workers, 2)
+    rf = sim.run_sync(rounds=3)
+    nf = kernel.fed_agg_cuda.launches
+    # (the fold is the flat mean re-associated, a few ulp apart; 4 local
+    # epochs a round amplify that, so accuracy is held, as above)
+    fog_acc = max(abs(a.acc - b.acc) for a, b in zip(rk.records, rf.records))
+    fog_gap = max(float((a - b).abs().max()) for a, b in
+                  zip(leaves(rk.final_params), leaves(rf.final_params)))
+    check([(r.time, r.round) for r in rk.records]
+          == [(r.time, r.round) for r in rf.records],
+          "fog-tier sync time/round columns differ from the flat run")
+    check(fog_acc <= 0.01 and nf == 3 * rounds,
+          f"fog-tier sync: acc gap {fog_acc}, {nf} fed_agg launches")
+    print(f"sync all-policy through 2 fog cells: acc gap {fog_acc:.4g} and "
+          f"final params max |diff| {fog_gap:.3g} from the flat run, "
+          f"{nf / rounds:.0f} fed_agg launches per round", flush=True)
 
-    # 5. results
+    # 5. quant8 kernels vs plain version (launches here are not the path's)
+    q8_rows = quant8_sweep(torch)
+    q8_main = quant8_exchange_shapes(torch)
+
+    # 6. the exchange path, counted from zero: the entry point at P = 2,
+    #    4, 8 x 4 modes, flat and two-tier, and the paper's model on islands
+    q8.quantize_rows_cuda.launches = q8.dequantize_rows_cuda.launches = 0
+    t0 = time.perf_counter()
+    ex_kernel = exchange_path(torch)
+    params_k, accs_k = fl_exchange.island_rounds("cuda")
+    torch.cuda.synchronize()
+    q8_launches = {"quantize": q8.quantize_rows_cuda.launches,
+                   "dequantize": q8.dequantize_rows_cuda.launches}
+    print(f"exchange path: {time.perf_counter() - t0:.2f} s wall, quant8 "
+          f"launches {q8_launches}", flush=True)
+    check(min(q8_launches.values()) > 0,
+          "the exchange path launched no quant8 kernel")
+    for fog_cells, per_hop in ((1, 10), (2, 20)):
+        stacked, base = fl_exchange.make_tree(EXCHANGE_P, device="cuda")
+        fn = fl_exchange.exchange_fn(EXCHANGE_P, "q8", fog_cells=fog_cells,
+                                     device=torch.device("cuda"))
+        before = q8.quantize_rows_cuda.launches + \
+            q8.dequantize_rows_cuda.launches
+        fn(stacked, base)
+        n = q8.quantize_rows_cuda.launches + \
+            q8.dequantize_rows_cuda.launches - before
+        check(n == per_hop, f"q8 exchange ({fog_cells} cells): {n} quant8 "
+              f"launches, expected {per_hop}")
+        print(f"one q8 exchange, {'flat' if fog_cells == 1 else 'two-tier'}"
+              f": {n} quant8 launches", flush=True)
+    before = q8.quantize_rows_cuda.launches
+    for fog_cells, outs in ex_kernel.items():
+        _, plain = fl_exchange.run("cuda", fog_cells=fog_cells, impl="ref",
+                                   rounds=1)
+        gap = max(fl_exchange.max_abs_diff(outs[k], plain[k]) for k in outs)
+        check(gap == 0.0, f"kernel vs plain exchange ({fog_cells} cells): "
+              f"max |diff| {gap}")
+        print(f"fl_exchange {fog_cells} cell(s): kernel vs plain outputs "
+              f"max |diff| {gap} over {len(outs)} cells", flush=True)
+    params_r, accs_r = fl_exchange.island_rounds("cuda", impl="ref")
+    check(q8.quantize_rows_cuda.launches == before,
+          "a plain (impl='ref') run launched a quant8 kernel")
+    island_gap = max(float((a - b).abs().max()) for a, b in
+                     zip(leaves(params_k), leaves(params_r)))
+    check(island_gap == 0.0 and accs_k == accs_r,
+          f"flight-cnn-mnist islands: kernel vs plain params {island_gap}")
+    for leaf in leaves(params_k):
+        check(bool(torch.isfinite(leaf).all()), "non-finite island params")
+    print(f"flight-cnn-mnist, 4 islands, 2 fog cells, q8, 3 rounds: "
+          f"accuracy {accs_k} through the kernels, {accs_r} plain; final "
+          f"params max |diff| {island_gap}", flush=True)
+
+    # 7. results
     main_row = next(r for r in rows if (r["K"], r["N"], r["dtype"])
                     == MAIN_SHAPE)
-    print(json.dumps({"kernels": [{
+    table = [{
         "name": "fed_agg", "route": "cuda",
         "source": "src/repro_torch/kernels/fed_agg/csrc/fed_agg.cu",
         "replaces": "src/repro/kernels/fed_agg/kernel.py:40",
         "launches": launches, "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]}))
+        "library_ms": main_row["library_ms"]}]
+    for name, line in (("quantize", 46), ("dequantize", 68)):
+        t = q8_main[name]
+        table.append({
+            "name": f"quant8_{name}", "route": "cuda",
+            "source": "src/repro_torch/kernels/quant8/csrc/quant8.cu",
+            "replaces": f"src/repro/kernels/quant8/kernel.py:{line}",
+            "launches": q8_launches[name], "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    print(f"quant8 sweep: {len(q8_rows)} shapes x 2 kernels, all bit-equal",
+          flush=True)
+    print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -243,7 +243,7 @@ def robust_aggregate(param_list, method: str, **kw):
 
 
 # --------------------------------------------------------------------------
-# Mixing-matrix form (numpy; the island exchange uses them)
+# Mixing-matrix form (the island exchange)
 # --------------------------------------------------------------------------
 
 def sync_mixing_matrix(weights: np.ndarray) -> np.ndarray:
@@ -267,3 +267,24 @@ def async_mixing_matrix(alphas: np.ndarray, contributors: np.ndarray
     if not np.allclose(M.sum(axis=1), 1.0):
         raise ValueError("mixing rows must sum to 1 (alphas in [0, 1])")
     return M
+
+
+def mix_islands(stacked_params, mixing):
+    """new_i = sum_j M[i,j] params_j over the leading island axis: the
+    island exchange as one local contraction on the card.
+
+    fp32 leaves are a (P, P) x (P, N) product (`torch.tensordot`, full fp32:
+    runtime.py leaves TF32 off).  bf16 leaves follow the reference's branch:
+    the weights are rounded to bf16 and the islands summed elementwise in
+    bf16."""
+
+    def mix(leaf):
+        m = torch.as_tensor(mixing, device=leaf.device).float()
+        if leaf.dtype == torch.bfloat16:
+            P = leaf.shape[0]
+            w = m.to(torch.bfloat16).reshape((P, P) + (1,) * (leaf.dim() - 1))
+            return (w * leaf[None]).sum(dim=1)
+        out = torch.tensordot(m, leaf.float(), dims=1)
+        return out.to(leaf.dtype)
+
+    return tree_map(mix, stacked_params)

@@ -17,7 +17,14 @@ stream, so `SimRecord.time` and `.round` follow the same draws, and the
 jax key, split once per dispatch, whose batch orders `repro_torch.threefry`
 computes bit for bit.  Given the reference's initial params, a port run
 walks the JAX run's batch orders and differs from it only in float
-rounding.  Fault injection and checkpointed resume are not ported yet.
+rounding.
+
+Fault injection (core/faults.py): a `FaultPlan` corrupts worker updates on
+the wire (Byzantine attacks), drops / duplicates responses, crash-restarts
+workers, and kills the aggregation server mid-round -- every decision the
+reference's, draw for draw.  Rejected/diverged updates feed the server's
+quarantine counters; async rejections go through the server's bounded
+retry/backoff policy.  Checkpointed resume (`ckpt=`) is not ported yet.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ class SimRecord:
 class SimResult:
     records: list[SimRecord]
     final_params: object = None
+    crashed: bool = False         # server killed mid-round (a FaultPlan)
 
     def time_to_accuracy(self, target: float) -> float:
         for r in self.records:
@@ -65,9 +73,6 @@ class FLSimulation:
                  idle_tick: float = 0.2, time_noise: float = 0.05,
                  seed: int = 0, cohort: bool = True, faults=None,
                  ckpt=None):
-        if faults is not None:
-            raise NotImplementedError("faults= needs core/faults, not "
-                                      "ported yet")
         if ckpt is not None:
             raise NotImplementedError("ckpt= needs checkpoint/manager, not "
                                       "ported yet")
@@ -86,6 +91,7 @@ class FLSimulation:
         # cohort=True trains same-shape worker groups in one vmapped step
         # (client.LocalTrainer.train_cohort) instead of a Python loop.
         self.cohort = cohort
+        self.faults = faults          # Optional faults.FaultPlan
         trainer = next(iter(workers.values())).trainer
         self._eval = lambda p: trainer.evaluate(p, self.test_images,
                                                 self.test_labels)
@@ -147,6 +153,20 @@ class FLSimulation:
                         out[m] = p
         return out, diverged
 
+    def _inject_sync(self, responses: dict[int, object], base, rnd: int
+                     ) -> dict[int, object]:
+        """Apply the fault plan to one sync round's responses: Byzantine
+        corruption relative to the dispatch base, then drops / worker
+        crashes (the sync barrier dedupes duplicates by construction)."""
+        if self.faults is None:
+            return responses
+        out = {}
+        for wid, p in responses.items():
+            if self.faults.response_fate(wid, rnd) == "drop":
+                continue
+            out[wid] = self.faults.corrupt(p, base, wid, rnd)
+        return out
+
     # -- synchronous ---------------------------------------------------
     def run_sync(self, rounds: int, *, max_time: float = np.inf,
                  target_acc: float = np.inf) -> SimResult:
@@ -176,8 +196,12 @@ class FLSimulation:
             responses, diverged = self._train_plan(srv.params, plan)
             for wid in diverged:
                 srv.note_divergence(wid)
+            responses = self._inject_sync(responses, srv.params, rnd)
             t += finish + self.round_overhead
             srv.sync_aggregate(responses, t)
+            if self.faults is not None and self.faults.server_crashes(rnd):
+                # killed mid-round: the round's work is lost (no record)
+                return SimResult(recs, srv.params, crashed=True)
             acc = self._eval(srv.params)
             last_acc = acc
             recs.append(SimRecord(t, acc, rnd, len(sel), srv.version))
@@ -207,11 +231,16 @@ class FLSimulation:
             if w.diverged:
                 srv.note_divergence(wid)
                 return
+            if self.faults is not None:
+                # Byzantine corruption rides the wire; keyed by the unique
+                # dispatch seq so replays inject identically
+                new_params = self.faults.corrupt(new_params, srv.params,
+                                                 wid, seq)
             srv.stats[wid].observe(t_one, t_tx)
             # the heap orders on (t_fin, seq): seq is unique, so params
-            # are never compared
+            # are never compared; the last field marks a re-delivery
             heapq.heappush(heap, (now + delay + dur, seq, wid, new_params,
-                                  srv.version))
+                                  srv.version, False))
             seq += 1
             in_flight.add(wid)
 
@@ -227,9 +256,22 @@ class FLSimulation:
                     if wid not in in_flight:
                         dispatch(wid, t)
                 continue
-            t_fin, _, wid, w_params, base_version = heapq.heappop(heap)
+            t_fin, sq, wid, w_params, base_version, is_dup = \
+                heapq.heappop(heap)
             in_flight.discard(wid)
             t = max(t, t_fin)
+            if self.faults is not None and not is_dup:
+                fate = self.faults.response_fate(wid, sq)
+                if fate == "drop":
+                    for w2 in srv.select():
+                        if w2 not in in_flight:
+                            dispatch(w2, t)
+                    continue
+                if fate == "duplicate":
+                    # the network re-delivers the same message a beat later
+                    heapq.heappush(heap, (t + self.idle_tick, seq, wid,
+                                          w_params, base_version, True))
+                    seq += 1
             accepted = srv.async_fold(wid, w_params, base_version, t)
             if not accepted:
                 # bounded retry with exponential backoff (server policy)
@@ -242,6 +284,8 @@ class FLSimulation:
                         dispatch(w2, t)
                 continue
             merges += 1
+            if self.faults is not None and self.faults.server_crashes(merges):
+                return SimResult(recs, srv.params, crashed=True)
             acc = self._eval(srv.params)
             last_acc = acc
             recs.append(SimRecord(t, acc, merges, 1, srv.version))

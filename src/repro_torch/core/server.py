@@ -12,13 +12,15 @@ Beyond-paper robustness, as in the reference:
     whose counter reaches `quarantine_threshold` stop being selected.
   * ROBUST AGGREGATION -- `robust_agg` swaps the weighted average for a
     Byzantine-robust fold (trimmed mean / median / multi-Krum / norm
-    clipping, aggregation.ROBUST_METHODS).
+    clipping, aggregation.ROBUST_METHODS).  With a fog topology the
+    robust fold runs per cell and again over the cell aggregates.
   * RETRY/BACKOFF -- async engines consult `retry_policy` after a
     rejection: bounded re-dispatches with exponential backoff.
 
 The weighted average and the async fold run through the fed_agg kernel on
-CUDA; `impl="ref"` sends them through its plain version instead.  The fog
-topology (`topology=`) is not ported yet.
+CUDA; `impl="ref"` sends them through its plain version instead.  With a
+fog topology (`topology=`) a sync round folds edge -> fog -> cloud, one
+fed_agg launch per cell and one for the cloud (core/hierarchy.py).
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.core import aggregation, selection
+from repro_torch.core import aggregation, hierarchy, selection
 from repro_torch.core.cost_model import WorkerStats
 from repro_torch.core.server_opt import ServerOptimizer
 
@@ -64,14 +66,15 @@ class AggregationServer:
     def __init__(self, params, stats: dict[int, WorkerStats],
                  cfg: ServerConfig, *, seed: int = 0, topology=None,
                  impl: str = "auto"):
-        if topology is not None:
-            raise NotImplementedError(
-                "fog topology needs core/hierarchy, not ported yet")
         if cfg.robust_agg not in ("none",) + aggregation.ROBUST_METHODS:
             raise ValueError(f"unknown robust_agg '{cfg.robust_agg}'")
         self.params = params
         self.stats = stats
         self.cfg = cfg
+        # Optional hierarchy.FogTopology: sync rounds then aggregate
+        # edge->fog->cloud instead of flat (numerically equivalent for
+        # matching weights; see core/hierarchy.py).
+        self.topology = topology
         self.impl = impl              # fed_agg path: "auto" | "ref"
         self.version = 0
         self.acc_history: list[float] = [0.0]
@@ -196,6 +199,11 @@ class AggregationServer:
         kw = {k: v for k, v in kw.items() if v is not None}
         if c.robust_agg == "norm_clip":
             kw["base"] = self.params
+        if self.topology is not None:
+            return hierarchy.fog_aggregate_responses(
+                responses, {w: max(self.stats[w].n_data, 1) for w in wids},
+                self.topology, robust=c.robust_agg, robust_kw=kw,
+                impl=self.impl)
         return aggregation.robust_aggregate(
             [responses[w] for w in wids], c.robust_agg, **kw)
 
@@ -215,6 +223,9 @@ class AggregationServer:
         avg = None
         if self.cfg.robust_agg != "none":
             avg = self._robust_avg(responses, wids)
+        elif self.topology is not None:
+            avg = hierarchy.fog_aggregate_responses(
+                responses, dict(zip(wids, w)), self.topology, impl=self.impl)
         self.params, self._sopt_state = self._sopt.apply(
             self.params, [responses[i] for i in wids], w, self._sopt_state,
             avg=avg, impl=self.impl)

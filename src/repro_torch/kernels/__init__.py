@@ -4,5 +4,7 @@
 # impl="ref"), ref.py (plain PyTorch oracle), csrc/ (CUDA sources).
 #
 #   fed_agg         -- K-way weighted model aggregation (the FLight merge)
+#   quant8          -- symmetric int8 quantise / dequantise, one fp32 scale
+#                      per row (the compressed island exchange)
 #
-# Still to port (ROADMAP queue 2): quant8, flash_attention, linrec.
+# Still to port (ROADMAP queue 2): flash_attention, linrec.

@@ -12,9 +12,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import aggregation as tagg
+from repro_torch.examples import fl_exchange
 from repro_torch.kernels.fed_agg import kernel as tkernel
 from repro_torch.kernels.fed_agg.ops import fed_agg
 from repro_torch.kernels.fed_agg.ref import fed_agg_2d_ref
+from repro_torch.kernels.quant8 import kernel as q8kernel
+from repro_torch.kernels.quant8 import ops as q8ops
+from repro_torch.kernels.quant8.ref import (dequantize_rows_ref,
+                                            quantize_rows_ref)
 from repro_torch.models.param import from_reference
 from repro_torch.tree import leaves
 
@@ -94,3 +99,74 @@ def test_tree_merge_is_one_launch(cuda):
     want = tagg.weighted_average(trees, w, impl="ref")
     for g, x in zip(leaves(got), leaves(want)):
         torch.testing.assert_close(g, x, rtol=1e-6, atol=1e-6)
+
+
+def _rows(R, C, seed, cuda, dtype):
+    """Normal rows over four decades of scale; rows 0-3 (when present)
+    hold a NaN, a +inf, a -inf, and zeros only."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(R, C)) * 10.0 ** rng.uniform(-2, 2, size=(R, 1))
+    for r, (c, v) in enumerate([(C // 2, np.nan), (C - 1, np.inf),
+                                (0, -np.inf)][:R]):
+        x[r, c] = v
+    if R > 3:
+        x[3] = 0.0
+    return torch.from_numpy(x.astype(np.float32)).to(cuda, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,C", [(9, 1), (64, 5), (7, 31), (33, 256),
+                                 (5, 1027), (4, 4096), (3, 151_936)])
+def test_quant8_kernels_bit_equal_plain_version(cuda, dtype, R, C):
+    """Short rows (a lane group each, C = 1, 5, 31 leave lanes idle), the
+    1027-wide bias and the 151,936-wide LM-head row (one block each); q
+    and scales bit-equal, NaN/inf rows with q = 0 and a non-finite
+    scale; dequantise bit-equal in fp32 and bf16."""
+    x = _rows(R, C, R * C, cuda, dtype)
+    before = (q8kernel.quantize_rows_cuda.launches,
+              q8kernel.dequantize_rows_cuda.launches)
+    q, s = q8ops.quantize_rows(x)
+    qr, sr = quantize_rows_ref(x)
+    torch.cuda.synchronize()
+    assert q8kernel.quantize_rows_cuda.launches == before[0] + 1
+    assert torch.equal(q, qr)
+    torch.testing.assert_close(s, sr, rtol=0, atol=0, equal_nan=True)
+    bad = min(R, 3)
+    assert not q[:bad].any() and not torch.isfinite(s[:bad]).any()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = q8ops.dequantize_rows(q, s, out_dtype=out_dtype)
+        torch.testing.assert_close(got, dequantize_rows_ref(q, s, out_dtype),
+                                   rtol=0, atol=0, equal_nan=True)
+    assert q8kernel.dequantize_rows_cuda.launches == before[1] + 2
+
+
+def test_quant8_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.ones(4, 8, device=cuda)
+    before = (q8kernel.quantize_rows_cuda.launches,
+              q8kernel.dequantize_rows_cuda.launches)
+    with pytest.raises(TypeError):
+        q8kernel.quantize_rows_cuda(x.half())
+    with pytest.raises(ValueError):
+        q8kernel.quantize_rows_cuda(x.t())
+    q, s = q8kernel.quantize_rows_cuda(x)
+    with pytest.raises(ValueError):
+        q8kernel.dequantize_rows_cuda(q, s[:2])
+    with pytest.raises(TypeError):
+        q8kernel.dequantize_rows_cuda(q.int(), s)
+    assert (q8kernel.quantize_rows_cuda.launches,
+            q8kernel.dequantize_rows_cuda.launches) == (before[0] + 1,
+                                                        before[1])
+
+
+def test_flat_q8_exchange_is_ten_launches_and_equals_plain(cuda):
+    """The exchange workload at P = 2: 5 leaves, one quantise and one
+    dequantise each; the kernel exchange equals the plain one exactly."""
+    stacked, base = fl_exchange.make_tree(2, device=cuda)
+    before = (q8kernel.quantize_rows_cuda.launches,
+              q8kernel.dequantize_rows_cuda.launches)
+    got = fl_exchange.exchange_fn(2, "q8", device=cuda)(stacked, base)
+    assert (q8kernel.quantize_rows_cuda.launches - before[0],
+            q8kernel.dequantize_rows_cuda.launches - before[1]) == (5, 5)
+    want = fl_exchange.exchange_fn(2, "q8", impl="ref", device=cuda)(
+        stacked, base)
+    assert fl_exchange.max_abs_diff(got, want) == 0.0

@@ -166,8 +166,8 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_unported_engine_options_raise():
-    with pytest.raises(NotImplementedError):
-        tevents.FLSimulation(None, {}, None, None, faults=object())
+    """`ckpt=` waits for checkpoint/manager; `faults=` is ported (held
+    against JAX in test_torch_faults.py)."""
     with pytest.raises(NotImplementedError):
         tevents.FLSimulation(None, {}, None, None, ckpt=object())
 

@@ -147,9 +147,14 @@ def test_policy_feedback_and_state_dict_round_trip():
 
 
 def test_fog_topology_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        tserver.AggregationServer({}, {}, tserver.ServerConfig(),
-                                  topology=object())
+    """The fog topology is ported now (core/hierarchy.py): the server takes
+    it and keeps it; its rounds are held against JAX's in
+    test_torch_exchange.py.  An unknown robust method still raises."""
+    from repro_torch.core.hierarchy import FogTopology
+    topo = FogTopology.round_robin(range(4), 2)
+    srv = tserver.AggregationServer({}, {}, tserver.ServerConfig(),
+                                    topology=topo)
+    assert srv.topology is topo
     with pytest.raises(ValueError):
         tserver.AggregationServer({}, {}, tserver.ServerConfig(
             robust_agg="mean_of_means"))
