@@ -15,8 +15,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      1-7, whose median best accuracy must be within 0.03 of the JAX
      quickstart's median over the same seeds; then a 3-round sync run
      twice, through the kernel and through the plain version, which must
-     agree, and once through a 2-cell fog tier, which must match the flat
-     run;
+     agree; one round of the same responses folded flat and through a
+     2-cell fog tier (params within 1e-6), and the 3 rounds through the
+     fog tier (accuracy within 0.01 of the flat run);
   5. hold the quant8 kernels (quantise, dequantise) against their plain
      version over C x rows x dtype with NaN/inf rows, bit for bit, with
      their times, the plain version's, one `q * scale` call's and the
@@ -55,6 +56,10 @@ JAX_BEST_ACC = {0: 0.7998, 1: 0.9092, 2: 0.9424, 3: 0.9121,
                 4: 0.9307, 5: 0.8828, 6: 0.9189, 7: 0.7080}
 ACC_TOL = 0.03
 MAIN_SHAPE = (2, 20_490, "float32")   # async merge of flight-cnn-mnist
+# one round's fog fold (cells, then the cloud) against the flat fold: the
+# weighted mean re-associated, fp32 rounding apart; a wrong cell weighting
+# moves it by the responses' spread, about 1e-2 here
+FOG_FOLD_TOL = 1e-6
 # quant8 sweep: row width C (5: odd; 256: the exchange's matrices; 1027:
 # its bias; 4096; 151,936: an LM head's vocabulary row) x total elements
 Q8_WIDTHS = (5, 256, 1027, 4096, 151_936)
@@ -105,6 +110,13 @@ def eager_ms(torch, fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """Least time (ms) the card could take and what bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def kernel_sweep(torch, np):
     from repro_torch.kernels.fed_agg.kernel import fed_agg_cuda
     from repro_torch.kernels.fed_agg.ref import fed_agg_2d_ref
@@ -130,16 +142,12 @@ def kernel_sweep(torch, np):
                 lib = graph_ms(torch, lambda: torch.einsum("kn,k->n", x, wl),
                                iters)
                 call = eager_ms(torch, lambda: fed_agg_cuda(x, w), iters)
-                nbytes = (K + 1) * N * x.element_size() + 4 * K
-                flops = 2 * K * N
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                t_ops = flops / FP32_FLOPS_PER_S * 1e3
+                b_ms, b_by = bound((K + 1) * N * x.element_size() + 4 * K,
+                                   2 * K * N)
                 row = {"K": K, "N": N, "dtype": str(dtype).split(".")[-1],
                        "max_abs_err": err, "tol": tol, "ms": ms,
                        "plain_ms": plain, "library_ms": lib,
-                       "call_ms": call, "bound_ms": max(t_bytes, t_ops),
-                       "bound_by": "bytes" if t_bytes >= t_ops
-                       else "operations"}
+                       "call_ms": call, "bound_ms": b_ms, "bound_by": b_by}
                 rows.append(row)
                 print(f"fed_agg K={K} N={N} {row['dtype']}: "
                       f"err={err:.3g} (tol {tol}) kernel={ms:.5f} ms "
@@ -148,13 +156,6 @@ def kernel_sweep(torch, np):
                       f"{row['bound_ms'] / ms:.1%} of it) "
                       f"python call={call:.5f} ms", flush=True)
     return rows
-
-
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
-    """Least time (ms) the card could take and what bounds it."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def poisoned_rows(torch, R: int, C: int, dtype, seed: int):
@@ -325,7 +326,7 @@ def main() -> int:
     from repro_torch.kernels.fed_agg import kernel
     from repro_torch.kernels.quant8 import kernel as q8
     from repro_torch.runtime import resolve_device
-    from repro_torch.tree import leaves
+    from repro_torch.tree import leaves, tree_map
 
     # 1. the card
     smi = subprocess.run(
@@ -401,14 +402,43 @@ def main() -> int:
     print(f"sync all-policy, {rounds} rounds: kernel vs plain merge "
           f"acc gap {acc_gap:.4g}, final params max |diff| {param_gap:.3g}, "
           f"{nk / rounds:.0f} fed_agg launch per round", flush=True)
-    # the same rounds folded edge -> fog -> cloud: 2 cells + the cloud
+    # the fog fold alone, before training can amplify a rounding: the same
+    # responses (seeded moves of the initial params) into a flat server
+    # and a 2-cell server, one round each
+    servers = {}
+    for cells in (1, 2):
+        sim = quickstart.make_simulation("cuda", policy="all", mode="sync")
+        if cells > 1:
+            sim.server.topology = FogTopology.round_robin(sim.workers, cells)
+        servers[cells] = sim.server
+    g = torch.Generator(device="cuda").manual_seed(0)
+    responses = {w: tree_map(lambda p: p + 0.05 * torch.randn(
+        p.shape, generator=g, device="cuda"), servers[1].params)
+        for w in sorted(servers[1].stats)}
+    merged = {}
+    for cells, srv in servers.items():
+        kernel.fed_agg_cuda.launches = 0
+        srv.sync_aggregate(responses, 1.0)
+        merged[cells] = (srv.params, kernel.fed_agg_cuda.launches)
+    fold_gap = max(float((a - b).abs().max()) for a, b in
+                   zip(leaves(merged[1][0]), leaves(merged[2][0])))
+    check(fold_gap <= FOG_FOLD_TOL and merged[1][1] == 1
+          and merged[2][1] == 3,
+          f"fog fold of one round: params gap {fold_gap} from the flat "
+          f"fold (tolerance {FOG_FOLD_TOL}), fed_agg launches flat "
+          f"{merged[1][1]}, 2 cells {merged[2][1]}")
+    print(f"one round of the same {len(responses)} responses, flat vs 2 "
+          f"fog cells: merged params max |diff| {fold_gap:.3g} (tolerance "
+          f"{FOG_FOLD_TOL}), fed_agg launches {merged[1][1]} and "
+          f"{merged[2][1]}", flush=True)
+    # the same 3 sync rounds folded edge -> fog -> cloud: 2 cells + the
+    # cloud; 4 local epochs a round amplify the fold's rounding, so
+    # accuracy is held here, the params above
     kernel.fed_agg_cuda.launches = 0
     sim = quickstart.make_simulation("cuda", policy="all", mode="sync")
     sim.server.topology = FogTopology.round_robin(sim.workers, 2)
     rf = sim.run_sync(rounds=3)
     nf = kernel.fed_agg_cuda.launches
-    # (the fold is the flat mean re-associated, a few ulp apart; 4 local
-    # epochs a round amplify that, so accuracy is held, as above)
     fog_acc = max(abs(a.acc - b.acc) for a, b in zip(rk.records, rf.records))
     fog_gap = max(float((a - b).abs().max()) for a, b in
                   zip(leaves(rk.final_params), leaves(rf.final_params)))

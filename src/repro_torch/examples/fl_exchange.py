@@ -5,8 +5,8 @@ sizes: a seeded mixed-shape, mixed-dtype tree of 656,643 params per island
 (embed 512x256, w1 256x1024, w2 1024x256 and bias 1027 in fp32, ln 256 in
 bf16), stacked over P = 2, 4, 8 islands with small per-island deltas from a
 shared base, exchanged through `launch.steps.make_fl_aggregate` in the
-modes f32, q8, topk and q8_topk -- flat, or edge -> fog -> cloud with
-`--fog-cells`.  Per cell it prints the wire bytes
+modes f32, q8, topk and q8_topk -- flat, then edge -> fog -> cloud through
+2 fog cells.  Per cell it prints the wire bytes
 (`core.compression.compressed_bytes`), the reduction against f32 and the
 time per exchange (CUDA events on the card), and it checks the benchmark's
 invariants: q8 at least 3.5x smaller than f32, q8_topk smaller than q8,
@@ -19,7 +19,6 @@ flight-cnn-mnist train a local epoch each round (`cohort_train`) and
 exchange int8 deltas through the fog tier.
 
   PYTHONPATH=src python -m repro_torch.examples.fl_exchange [--device cpu]
-      [--fog-cells 2] [--impl ref]
 """
 from __future__ import annotations
 
@@ -220,33 +219,30 @@ def island_rounds(device="cuda", *, islands: int = 4, fog_cells: int = 2,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--fog-cells", type=int, default=1,
-                    help="1: flat exchange; > 1: edge -> fog -> cloud")
-    ap.add_argument("--impl", default="auto", choices=("auto", "ref"),
-                    help="quant8 path: the kernels on the card, or the "
-                         "plain version")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
         else "host"
-    cells, _ = run(dev, fog_cells=args.fog_cells, impl=args.impl)
-    for name, c in cells.items():
-        f32_mb = cells[f"P{c['islands']}_f32"]["wire_mb_per_round"]
-        print(f"[fl_exchange] P={c['islands']} {c['mode']:8s} "
-              f"{c['wire_mb_per_round']:8.4f} MB/round "
-              f"({c['reduction_vs_f32']:5.2f}x vs f32 {f32_mb:.4f} MB) "
-              f"{c['exchange_ms']:9.4f} ms/exchange ({where})", flush=True)
-    parity = measure_parity(dev, fog_cells=args.fog_cells)
-    for k, v in parity.items():
-        print(f"[fl_exchange] parity {k} = {v:.3e}")
-    bad = check_invariants(cells, parity)
+    bad = []
+    for fog_cells in (1, 2):
+        tier = "flat" if fog_cells == 1 else f"{fog_cells} fog cells"
+        cells, _ = run(dev, fog_cells=fog_cells)
+        for name, c in cells.items():
+            f32_mb = cells[f"P{c['islands']}_f32"]["wire_mb_per_round"]
+            print(f"[fl_exchange] {tier} P={c['islands']} {c['mode']:8s} "
+                  f"{c['wire_mb_per_round']:8.4f} MB/round "
+                  f"({c['reduction_vs_f32']:5.2f}x vs f32 {f32_mb:.4f} MB) "
+                  f"{c['exchange_ms']:9.4f} ms/exchange ({where})",
+                  flush=True)
+        parity = measure_parity(dev, fog_cells=fog_cells)
+        for k, v in parity.items():
+            print(f"[fl_exchange] {tier} parity {k} = {v:.3e}")
+        bad += [f"{tier}: {b}" for b in check_invariants(cells, parity)]
     for b in bad:
         print(f"[fl_exchange] INVARIANT VIOLATED: {b}")
     params_per_island = sum(math.prod(x.shape[1:]) for x in
                             leaves(make_tree(1)[0]))
-    print(f"[fl_exchange] {params_per_island} params per island, "
-          f"{'flat' if args.fog_cells <= 1 else f'{args.fog_cells} fog cells'}"
-          f", impl={args.impl}")
+    print(f"[fl_exchange] {params_per_island} params per island")
     return 1 if bad else 0
 
 

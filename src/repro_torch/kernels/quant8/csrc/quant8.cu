@@ -26,8 +26,9 @@
 // int8 plus 4*R bytes; dequantise reads R*C + 4*R and writes R*C*itemsize;
 // a handful of fp32 operations per element is far below the card's balance.
 // Any C >= 1 is taken without padding (the Pallas wrapper pads rows to 128
-// lanes for the TPU); the design is the simple one, streaming element loads
-// in two passes over each row:
+// lanes for the TPU).  Quantise needs each row's amax before it can write,
+// so its design is the simple one, streaming element loads in two passes
+// over each row:
 //   * short rows (C <= 1024): a group of G = min(32, pow2ceil(ceil(C / 4)))
 //     lanes of one warp owns a row, so each lane takes about four elements
 //     or more (a 5-wide row two lanes, a 256-wide row 32); the amax is a
@@ -38,6 +39,10 @@
 //     a template parameter, so the loop stride is a constant), the amax is
 //     a warp-then-block reduction, and the second pass re-reads the row
 //     (from L2 while it still fits).  A single long row runs on one SM.
+// Dequantise is elementwise, out[i] = float(q[i]) * scale[i / C], so it
+// ignores rows: one grid-stride kernel over all R*C elements, four loads in
+// flight a thread; up to 2^31 elements it uses 32-bit indices and finds an
+// element's row with a multiply-high instead of a division.
 // C = 5 or 1027 rows are not 16-byte aligned, so there are no vector loads;
 // the int8 stores are element-wise and masked by the loop bounds.
 //
@@ -48,6 +53,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -144,33 +150,47 @@ __global__ void __launch_bounds__(THREADS)
 
 // ---- dequantise -----------------------------------------------------------
 
-template <typename T>
-__global__ void dequantize_short(const int8_t* __restrict__ q, const float* __restrict__ scale,
-                                 T* __restrict__ out, int64_t rows, int C, int log2g) {
-  const int G = 1 << log2g;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t row = t >> log2g;
-  if (row >= rows) return;
-  const int lane = threadIdx.x & (G - 1);
-  const float s = __ldg(scale + row);
-  const int8_t* qr = q + row * C;
-  T* outr = out + row * C;
-#pragma unroll 4
-  for (int c = lane; c < C; c += G)
-    outr[c] = from_f32<T>(__fmul_rn(static_cast<float>(qr[c]), s));
-}
+constexpr int kUnroll = 4;  // elements a thread of dequantise takes per pass
 
-template <typename T, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-    dequantize_long(const int8_t* __restrict__ q, const float* __restrict__ scale,
-                    T* __restrict__ out, int64_t C) {
-  const int64_t row = blockIdx.x;
-  const float s = __ldg(scale + row);
-  const int8_t* qr = q + row * C;
-  T* outr = out + row * C;
-#pragma unroll 4
-  for (int64_t c = threadIdx.x; c < C; c += THREADS)
-    outr[c] = from_f32<T>(__fmul_rn(static_cast<float>(qr[c]), s));
+// j / C for j < 2^31 as (umulhi(j, magic) + j) >> shift, a multiply-high in
+// place of a 32-bit division (the divider of Granlund and Montgomery, as
+// PyTorch's IntDivider); exact for every such j and C <= 2^31.
+struct RowOf32 {
+  uint32_t magic, shift;
+  explicit RowOf32(uint32_t C) : shift(0) {
+    while ((uint64_t{1} << shift) < C) ++shift;
+    magic = static_cast<uint32_t>(((uint64_t{1} << 32) * ((uint64_t{1} << shift) - C)) / C + 1);
+  }
+  __device__ __forceinline__ uint32_t operator()(uint32_t j) const {
+    return (__umulhi(j, magic) + j) >> shift;
+  }
+};
+
+struct RowOf64 {  // past 2^31 elements: a plain 64-bit division
+  int64_t C;
+  __device__ __forceinline__ int64_t operator()(int64_t j) const { return j / C; }
+};
+
+template <typename T, typename I, typename RowOf>
+__global__ void __launch_bounds__(kThreads)
+    dequantize(const int8_t* __restrict__ q, const float* __restrict__ scale,
+               T* __restrict__ out, I n, RowOf row_of) {
+  const I stride = static_cast<I>(gridDim.x) * kThreads;
+  for (I i = static_cast<I>(blockIdx.x) * kThreads + threadIdx.x; i < n;
+       i += kUnroll * stride) {
+    float v[kUnroll], s[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {  // all loads first: four in flight
+      const I j = i + k * stride;
+      v[k] = j < n ? static_cast<float>(q[j]) : 0.0f;
+      s[k] = j < n ? __ldg(scale + row_of(j)) : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const I j = i + k * stride;
+      if (j < n) out[j] = from_f32<T>(__fmul_rn(v[k], s[k]));
+    }
+  }
 }
 
 // ---- launches -------------------------------------------------------------
@@ -222,16 +242,15 @@ cudaError_t launch_dequantize(const void* q, const void* scale, void* out, int64
   const int8_t* qt = static_cast<const int8_t*>(q);
   const float* st = static_cast<const float*>(scale);
   T* ot = static_cast<T*>(out);
-  if (C <= kShortMax) {
-    const int lg = log2_group(C);
-    dequantize_short<T><<<short_blocks(rows, lg), kThreads, 0, stream>>>(
-        qt, st, ot, rows, static_cast<int>(C), lg);
-  } else {
-    with_long_threads(C, [&](auto threads) {
-      constexpr int N = decltype(threads)::value;
-      dequantize_long<T, N><<<static_cast<unsigned int>(rows), N, 0, stream>>>(qt, st, ot, C);
-    });
-  }
+  const int64_t n = rows * C;
+  const int64_t per_block = int64_t{kUnroll} * kThreads;
+  const unsigned int blocks =
+      static_cast<unsigned int>(std::min<int64_t>((n + per_block - 1) / per_block, 1 << 20));
+  if (n <= (int64_t{1} << 31))  // i + kUnroll * stride stays below 2^32
+    dequantize<T, uint32_t><<<blocks, kThreads, 0, stream>>>(
+        qt, st, ot, static_cast<uint32_t>(n), RowOf32(static_cast<uint32_t>(C)));
+  else
+    dequantize<T, int64_t><<<blocks, kThreads, 0, stream>>>(qt, st, ot, n, RowOf64{C});
   return cudaGetLastError();
 }
 

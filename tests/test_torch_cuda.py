@@ -140,6 +140,25 @@ def test_quant8_kernels_bit_equal_plain_version(cuda, dtype, R, C):
     assert q8kernel.dequantize_rows_cuda.launches == before[1] + 2
 
 
+def test_quant8_dequantize_past_two_to_the_31_elements(cuda):
+    """Past 2^31 elements dequantise takes 64-bit indices: both rows at
+    their ends and row 1 around the 2^31-th element, bit-equal to the
+    plain version."""
+    C = (1 << 30) + 3
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randint(-127, 128, (2, C), dtype=torch.int8, device=cuda,
+                      generator=g)
+    s = torch.tensor([[0.5], [3.0e-3]], device=cuda)
+    out = q8kernel.dequantize_rows_cuda(q, s, torch.bfloat16)
+    mid = (1 << 31) - C            # row 1's column of element 2^31
+    for r, lo, hi in ((0, 0, 4096), (0, C - 4096, C), (1, 0, 4096),
+                      (1, mid - 2048, mid + 2048), (1, C - 4096, C)):
+        want = dequantize_rows_ref(q[r:r + 1, lo:hi], s[r:r + 1],
+                                   torch.bfloat16)
+        torch.testing.assert_close(out[r:r + 1, lo:hi], want, rtol=0,
+                                   atol=0)
+
+
 def test_quant8_kernels_reject_what_they_do_not_take(cuda):
     x = torch.ones(4, 8, device=cuda)
     before = (q8kernel.quantize_rows_cuda.launches,
