@@ -29,7 +29,25 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      quant8 launches; then 4 islands of flight-cnn-mnist, 3 rounds of one
      local epoch and a q8 exchange through 2 fog cells, through the
      kernels and the plain version, which must give equal final params;
-  7. print the kernel table as JSON, then the result line.
+  7. hold flash_attention against its plain version over
+     tests/test_kernels.py's shapes, odd T (1, 77, 1,000), D = 8, 12, 16,
+     non-causal, fp32 and bf16 (3e-4 / 3e-2), and time it at
+     granite-20b's full-width prefill shape beside its bound, the plain
+     version and one scaled_dot_product_attention call (a yardstick the
+     port never calls);
+  8. the LM serving path at granite-20b's full width (20.32 B params,
+     bf16, drawn on the card): `python -m repro_torch.launch.serve --full
+     --batch 8 --prompt-len 2048 --gen 32` through its main, which must
+     launch flash_attention once per layer (52); then a batch of 2 x 2,048
+     prefilled through the kernel, each layer's attention held against the
+     plain version on the same q/k/v (3e-2), and again through the plain
+     version: last-position logits within 2e-2 scale-relative;
+  9. the continuous-batching ServeLoop at full width (4 slots, 4,096
+     positions) draining 8 requests of 1 to 2,047 prompt tokens, 16 new
+     tokens each: one flash launch per layer per admitted prefill, each
+     first token equal to its solo prefill's; token agreement with solo
+     generation is reported;
+  10. print the kernel table as JSON, then the result line.
 """
 from __future__ import annotations
 
@@ -41,11 +59,14 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor cores
 # Best accuracy of the JAX package's quickstart run (examples/quickstart.py
 # fixes seed 0) after 80 async merges, on the CPU, per seed, as printed by
 # `PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_events.py`.
@@ -67,6 +88,25 @@ Q8_TOTALS = (1 << 10, 1 << 14, 1 << 18, 1 << 22, 1 << 26)
 Q8_OPS_PER_ELEMENT = {"quantize": 5, "dequantize": 1}   # abs, max, divide,
 #                                  round, clamp; multiply (fp32, no tensor core)
 EXCHANGE_P = 8                     # the exchange's leaf shapes at P islands
+# flash_attention sweep (B, T, H, Hkv, D, window, causal): test_kernels.py's
+# five shapes, odd T, the smoke configs' head dims, non-causal; bf16 takes
+# the tensor-core kernel up to D = 128 and the FMA kernel above (200, 256)
+FA_SWEEP = [(2, 256, 4, 4, 64, 0, True), (2, 256, 4, 2, 64, 0, True),
+            (2, 512, 8, 1, 128, 0, True), (2, 512, 4, 2, 64, 128, True),
+            (2, 1024, 2, 2, 64, 300, True), (2, 1, 48, 1, 128, 0, True),
+            (2, 77, 48, 1, 128, 0, True), (1, 1000, 48, 1, 128, 0, True),
+            (2, 77, 8, 2, 8, 0, True), (2, 100, 4, 4, 12, 0, True),
+            (2, 130, 4, 1, 16, 0, True), (2, 77, 4, 2, 64, 0, False),
+            (1, 300, 8, 8, 128, 0, False), (1, 130, 3, 3, 200, 50, False),
+            (1, 300, 4, 1, 256, 0, True)]
+FA_TOL = {"float32": 3e-4, "bfloat16": 3e-2}    # tests/test_kernels.py
+LM_ARCH = "granite-20b"
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
+FA_MAIN = (LM_BATCH, LM_PROMPT, 48, 1, 128)     # its prefill attention
+LM_CHECK_BATCH = 2      # plain-version prefill: fp32 scores, 1.6 GB a layer
+LM_LOGITS_TOL = 2e-2    # scale-relative, tests/test_cache_spec.py's measure
+LOOP_LENGTHS = (1, 77, 300, 1000, 2047, 513, 64, 1500)
+LOOP_SLOTS, LOOP_MAX_LEN, LOOP_NEW = 4, 4096, 16
 
 
 def check(ok: bool, msg: str):
@@ -110,10 +150,11 @@ def eager_ms(torch, fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
+def bound(nbytes: int, ops: int,
+          flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     """Least time (ms) the card could take and what bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    t_ops = ops / flops_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -313,17 +354,222 @@ def exchange_path(torch):
     return outputs
 
 
+def attention_pairs(T: int, window: int, causal: bool) -> int:
+    """(query, key) pairs the mask leaves live, S == T."""
+    t = np.arange(T)
+    lo = np.maximum(t - window + 1, 0) if window else np.zeros_like(t)
+    hi = t + 1 if causal else np.full_like(t, T)
+    return int((hi - lo).sum())
+
+
+def flash_sweep(torch):
+    """flash_attention vs its plain version over FA_SWEEP x dtype; then the
+    full-width prefill shape, timed; -> the main shape's record."""
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def qkv(B, T, H, Hkv, D, dtype):
+        q = torch.randn(B, T, H, D, generator=g, device="cuda") * 0.3
+        k = torch.randn(B, T, Hkv, D, generator=g, device="cuda") * 0.3
+        v = torch.randn(B, T, Hkv, D, generator=g, device="cuda")
+        return q.to(dtype), k.to(dtype), v.to(dtype)
+
+    def plain(q, k, v, window=0, causal=True):
+        return attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=causal,
+                             window=window).transpose(1, 2)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for B, T, H, Hkv, D, window, causal in FA_SWEEP:
+            q, k, v = qkv(B, T, H, Hkv, D, dtype)
+            got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+            want = plain(q, k, v, window, causal)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            check(err <= FA_TOL[name] and bool(torch.isfinite(got).all()),
+                  f"flash_attention {name} B={B} T={T} H={H} Hkv={Hkv} "
+                  f"D={D} window={window} causal={causal}: max |diff| "
+                  f"{err} > {FA_TOL[name]}")
+            print(f"flash_attention {name} B={B} T={T} H={H} Hkv={Hkv} D={D}"
+                  f" window={window} causal={causal}: max |diff| {err:.3g} "
+                  f"(tol {FA_TOL[name]})", flush=True)
+    B, T, H, Hkv, D = FA_MAIN
+    q, k, v = qkv(B, T, H, Hkv, D, torch.bfloat16)
+    got = flash_attention_cuda(q, k, v)
+    err = float((got.float() - plain(q, k, v).float()).abs().max())
+    check(err <= FA_TOL["bfloat16"], f"flash_attention full width: {err}")
+    del got
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = graph_ms(torch, lambda: flash_attention_cuda(q, k, v), 5)
+    plain_ms = graph_ms(torch, lambda: plain(q, k, v), 2)
+    lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    flops = 4 * D * attention_pairs(T, 0, True) * B * H
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+    print(f"flash_attention full width B={B} T={T} H={H} Hkv={Hkv} D={D} "
+          f"bf16 causal: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+          f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}; {flops:.4g} FLOPs, {nbytes / 1e9:.3f} GB;"
+          f" {b_ms / ms:.2%} of it), max |diff| {err:.3g}", flush=True)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_serve(torch):
+    """The serve entry point at full width; -> (its result, the launches
+    and peak memory of that run)."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch import serve
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = serve.main(["--arch", LM_ARCH, "--full", "--batch", str(LM_BATCH),
+                      "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.flash_attention_cuda.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    model = res["model"]
+    L = model.cfg.num_layers
+    toks = res["tokens"]
+    check(launches == L, f"serve --full: {launches} flash launches, "
+          f"expected {L} (one per layer of the prefill)")
+    check(toks.shape == (LM_BATCH, LM_GEN) and toks.min() >= 0
+          and toks.max() < model.cfg.vocab_size,
+          f"serve --full: generated ids {toks.shape}, range "
+          f"{toks.min()}..{toks.max()}")
+    pre, dec = res["prefill_s"], res["decode_s"]
+    steps = res["decode_steps"]
+    print(f"serve {LM_ARCH} full width ({model.n_params / 1e9:.2f} B params,"
+          f" bf16; drawn on the card in {res['init_s']:.1f} s): prefill "
+          f"{LM_BATCH}x{LM_PROMPT} {pre * 1e3:.1f} ms "
+          f"({LM_BATCH * LM_PROMPT / pre:.0f} tok/s), decode "
+          f"{dec * 1e3 / steps:.2f} ms/step ({LM_BATCH * steps / dec:.0f} "
+          f"tok/s), {launches} flash launches, peak memory {peak:.2f} GB, "
+          f"{wall:.1f} s wall", flush=True)
+    return res, launches, peak
+
+
+def lm_kernel_vs_plain(torch, model, params):
+    """A batch of LM_CHECK_BATCH x LM_PROMPT prefilled through the kernel,
+    each layer's attention output held against the plain version on the
+    same q/k/v, then the whole prefill through the plain version."""
+    from repro_torch.models import layers
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(
+        0, model.cfg.vocab_size, (LM_CHECK_BATCH, LM_PROMPT)).astype(
+            np.int32), device="cuda")
+    select, errs = layers.select_attention, []
+
+    def checked(q, k, v, **kw):
+        out = select(q, k, v, **kw)
+        want = select(q, k, v, **{**kw, "impl": "ref"})
+        errs.append(float((out.float() - want.float()).abs().max()))
+        return out
+
+    layers.select_attention = checked
+    try:
+        with torch.no_grad():
+            lk, _ = model.apply(params, {"tokens": toks}, mode="prefill")
+    finally:
+        layers.select_attention = select
+    check(len(errs) == model.cfg.num_layers
+          and max(errs) <= FA_TOL["bfloat16"],
+          f"per-layer attention vs plain: {len(errs)} layers, max |diff| "
+          f"{max(errs)}")
+    with torch.no_grad():
+        lr, _ = model.apply(params, {"tokens": toks}, mode="prefill",
+                            impl="ref")
+    lk, lr = lk[:, -1].float(), lr[:, -1].float()
+    check(bool(torch.isfinite(lk).all() and torch.isfinite(lr).all()),
+          "non-finite prefill logits")
+    rel = float((lk - lr).abs().max() / lr.abs().max())
+    agree = int((lk.argmax(-1) == lr.argmax(-1)).sum())
+    check(rel <= LM_LOGITS_TOL, f"prefill logits, kernel vs plain: "
+          f"scale-relative max |diff| {rel} > {LM_LOGITS_TOL}")
+    print(f"{LM_ARCH} full width, {LM_CHECK_BATCH}x{LM_PROMPT} prefill: "
+          f"attention kernel vs plain per layer max |diff| "
+          f"{max(errs):.3g} ({len(errs)} layers, tol "
+          f"{FA_TOL['bfloat16']}); "
+          f"last-position logits scale-relative max |diff| {rel:.3g} (tol "
+          f"{LM_LOGITS_TOL}), greedy agreement {agree}/{LM_CHECK_BATCH}",
+          flush=True)
+    return {"layer_max_abs_err": max(errs), "logits_rel": rel}
+
+
+def lm_serve_loop(torch, model, params):
+    """ServeLoop at full width; -> (flash launches, admitted prefills)."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch.serve_loop import Request, ServeLoop
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
+               for n in LOOP_LENGTHS]
+    fa.flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    loop = ServeLoop(model, params, max_batch=LOOP_SLOTS,
+                     max_len=LOOP_MAX_LEN)
+    for i, p in enumerate(prompts):
+        loop.submit(Request(rid=i, prompt=p, max_new=LOOP_NEW))
+    done = {r.rid: r.out for r in loop.run_until_drained()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.flash_attention_cuda.launches
+    L = model.cfg.num_layers
+    check(sorted(done) == list(range(len(prompts)))
+          and all(len(o) == LOOP_NEW for o in done.values()),
+          f"ServeLoop: {len(done)} requests done, lengths "
+          f"{[len(o) for o in done.values()]}")
+    check(launches == L * len(prompts), f"ServeLoop: {launches} flash "
+          f"launches for {len(prompts)} prefills of {L} layers")
+    check(sorted(loop.free) == list(range(LOOP_SLOTS)), "slots not freed")
+    print(f"ServeLoop {LM_ARCH} full width, {LOOP_SLOTS} slots x "
+          f"{LOOP_MAX_LEN}: {len(prompts)} requests (prompts "
+          f"{LOOP_LENGTHS}) x {LOOP_NEW} tokens in {wall:.2f} s "
+          f"({len(prompts) * LOOP_NEW / wall:.1f} tok/s), {launches} flash "
+          "launches", flush=True)
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    first_equal, agree = 0, 0
+    for i, p in enumerate(prompts):
+        nxt, cache = prefill(params, {"tokens": torch.as_tensor(
+            p[None], device="cuda")})
+        solo = [int(nxt[0])]
+        for pos in range(len(p), len(p) + LOOP_NEW - 1):
+            nxt, cache = decode(params, {
+                "tokens": nxt[:, None],
+                "positions": torch.full((1, 1), pos, dtype=torch.int32,
+                                        device="cuda")}, cache)
+            solo.append(int(nxt[0]))
+        first_equal += solo[0] == done[i][0]
+        agree += sum(a == b for a, b in zip(solo, done[i]))
+        del cache
+    check(first_equal == len(prompts), f"ServeLoop: {first_equal} of "
+          f"{len(prompts)} first tokens equal their solo prefill's")
+    print(f"ServeLoop vs solo generation: first tokens {first_equal}/"
+          f"{len(prompts)} equal; {agree}/{len(prompts) * LOOP_NEW} tokens "
+          "agree (bf16 near-ties may flip across batch sizes; reported, "
+          "not pinned)", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 1
-    import numpy as np
-
     from repro_torch.core.hierarchy import FogTopology
     from repro_torch.examples import fl_exchange, quickstart
     from repro_torch.kernels.fed_agg import kernel
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.quant8 import kernel as q8
     from repro_torch.runtime import resolve_device
     from repro_torch.tree import leaves, tree_map
@@ -343,8 +589,8 @@ def main() -> int:
         path = Path(library()._name).relative_to(ROOT)
         return f"built {name} in {time.perf_counter() - t0:.1f} s -> {path}"
     with ThreadPoolExecutor() as pool:
-        for line in pool.map(build, ("fed_agg", "quant8"),
-                             (kernel.library, q8.library)):
+        for line in pool.map(build, ("fed_agg", "quant8", "flash_attention"),
+                             (kernel.library, q8.library, fa.library)):
             print(line, flush=True)
 
     # 3. kernel vs plain version (launches here are not the main path's)
@@ -503,7 +749,21 @@ def main() -> int:
           f"accuracy {accs_k} through the kernels, {accs_r} plain; final "
           f"params max |diff| {island_gap}", flush=True)
 
-    # 7. results
+    # 7. flash_attention vs plain version (launches here are not the path's)
+    fa_main = flash_sweep(torch)
+
+    # 8. the LM serving path at full width, counted from zero
+    res, serve_launches, peak = lm_serve(torch)
+    model, params = res["model"], res["params"]
+    del res
+    lm_kernel_vs_plain(torch, model, params)
+
+    # 9. continuous batching at full width, counted from zero
+    loop_launches = lm_serve_loop(torch, model, params)
+    del model, params
+    torch.cuda.empty_cache()
+
+    # 10. results
     main_row = next(r for r in rows if (r["K"], r["N"], r["dtype"])
                     == MAIN_SHAPE)
     table = [{
@@ -524,8 +784,21 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    table.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:105",
+        "launches": serve_launches + loop_launches,
+        "max_abs_err": fa_main["max_abs_err"], "ms": fa_main["ms"],
+        "plain_ms": fa_main["plain_ms"], "bound_ms": fa_main["bound_ms"],
+        "bound_by": fa_main["bound_by"],
+        "library_ms": fa_main["library_ms"]})
     print(f"quant8 sweep: {len(q8_rows)} shapes x 2 kernels, all bit-equal",
           flush=True)
+    print(f"flash_attention launches: {serve_launches} in the full-width "
+          f"serve, {loop_launches} in the ServeLoop; serve peak memory "
+          f"{peak:.2f} GB", flush=True)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """Architecture registry of the port: the architectures it can build.
 
 `get_config(name)` / `get_smoke_config(name)` behave as in
-`repro.configs`, restricted to the paper's own Tier-A models."""
+`repro.configs`, restricted to what the port has: the paper's own Tier-A
+models and the dense LMs.  The MoE, VLM, SSM, hybrid and enc-dec archs
+are not registered yet (ROADMAP queue 1)."""
 from __future__ import annotations
 
 import importlib
@@ -9,6 +11,10 @@ import importlib
 from repro_torch.models.config import ModelConfig, ShapeConfig, SHAPES
 
 _ARCHS = {
+    "qwen1.5-4b": "qwen1_5_4b",
+    "chatglm3-6b": "chatglm3_6b",
+    "granite-20b": "granite_20b",
+    "minitron-8b": "minitron_8b",
     # the paper's own workloads (Tier-A FL experiments)
     "flight-cnn-mnist": "flight_cnn",
     "flight-cnn-cifar": "flight_cnn",
@@ -25,11 +31,16 @@ def get_config(name: str) -> ModelConfig:
     mod = _module(name)
     if name == "flight-cnn-cifar":
         return mod.CONFIG_CIFAR
-    return mod.CONFIG_MNIST
+    if name == "flight-cnn-mnist":
+        return mod.CONFIG_MNIST
+    return mod.CONFIG
 
 
 def get_smoke_config(name: str) -> ModelConfig:
-    return get_config(name)  # the Tier-A models are already tiny
+    mod = _module(name)
+    if name.startswith("flight-cnn"):
+        return get_config(name)  # already tiny
+    return mod.SMOKE
 
 
 def list_archs():

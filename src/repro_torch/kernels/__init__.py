@@ -5,6 +5,8 @@
 #
 #   fed_agg         -- K-way weighted model aggregation (the FLight merge)
 #   quant8          -- symmetric int8 quantise / dequantise, one fp32 scale
-#                      per row (the compressed island exchange)
+#                      per row (the compressed island exchange, int8 KV caches)
+#   flash_attention -- causal / sliding-window GQA attention forward, fp32
+#                      online softmax (every LM prefill layer)
 #
-# Still to port (ROADMAP queue 2): flash_attention, linrec.
+# Still to port (ROADMAP queue 2): linrec.

@@ -1,0 +1,31 @@
+"""Public flash-attention API, in the (B, T, H, D) layout the models use.
+
+`impl="auto"` launches the CUDA kernel for CUDA tensors, on the tensors as
+they lie (no transposed copies), and runs the plain version (ref.py) for
+CPU tensors; `impl="ref"` forces the plain version.  Forward only: the
+backward kernel belongs to the training slice, so a gradient request
+raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+IMPLS = ("auto", "ref")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    impl: str = "auto"):
+    """q: (B, T, H, D); k/v: (B, S, Hkv, D) -> (B, T, H, D)."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r}; have {IMPLS}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward yet (the training slice)")
+    if impl == "ref" or q.device.type == "cpu":
+        out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal, window=window)
+        return out.transpose(1, 2)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)

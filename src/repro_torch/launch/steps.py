@@ -1,9 +1,11 @@
-"""Step factories, port of `repro.launch.steps`: so far only the island
-exchange (`make_fl_aggregate`).  The train and serve steps come with the LM
-stack."""
+"""Step factories, port of `repro.launch.steps`: the island exchange
+(`make_fl_aggregate`) and the serve steps (`make_prefill_step`,
+`make_decode_step`).  The train steps come with the training slice."""
 from __future__ import annotations
 
 from functools import partial
+
+import torch
 
 from repro_torch.core import federated
 
@@ -23,3 +25,24 @@ def make_fl_aggregate(compress=False, *, k_frac: float = 0.05,
         return federated.fl_aggregate
     return partial(federated.fl_aggregate_compressed, mode=mode,
                    k_frac=k_frac, impl=impl)
+
+
+def make_prefill_step(model):
+    """(params, batch) -> (greedy next token (B,), decode cache)."""
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        logits, cache = model.apply(params, batch, mode="prefill")
+        next_tok = torch.argmax(logits[:, -1].float(), dim=-1)
+        return next_tok, cache
+    return prefill_step
+
+
+def make_decode_step(model):
+    """(params, batch, cache) -> (greedy next token (B,), cache).  The
+    cache is updated in place and consumed, as the JAX loop donates it."""
+    @torch.no_grad()
+    def decode_step(params, batch, cache):
+        logits, cache = model.apply(params, batch, mode="decode", cache=cache)
+        next_tok = torch.argmax(logits[:, -1].float(), dim=-1)
+        return next_tok, cache
+    return decode_step

@@ -1,20 +1,21 @@
 """Unified model interface: one `Model` object per architecture config.
 
 Model exposes, as `repro.models.Model` does for the families ported so far
-(cnn, mlp):
-  param_defs()                     -> dict tree of ParamDef
-  init(key, device)                -> concrete params on `device`
-  apply(params, batch, mode, cache) -> (logits, aux)
-  n_params                         -> int
+(cnn, mlp, dense):
+  param_defs()                      -> dict tree of ParamDef
+  init(key, device)                 -> concrete params on `device`
+  apply(params, batch, mode, cache) -> (logits, aux_or_cache)
+  cache_defs(batch, seq)            -> dict tree of ParamDef (decode cache)
+  n_params                          -> int
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 
-from repro_torch.models import cnn
+from repro_torch.models import cnn, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import count_params, init_params
 from repro_torch.runtime import resolve_device
@@ -25,6 +26,7 @@ class Model:
     cfg: ModelConfig
     _defs: Callable
     _apply: Callable
+    _cache_defs: Optional[Callable] = None
 
     def param_defs(self):
         return self._defs(self.cfg)
@@ -33,8 +35,25 @@ class Model:
         """`key`: a Threefry key (`repro_torch.threefry.key(seed)`)."""
         return init_params(key, self.param_defs(), resolve_device(device))
 
-    def apply(self, params, batch, *, mode="train", cache=None):
-        return self._apply(params, self.cfg, batch, mode=mode, cache=cache)
+    def apply(self, params, batch, *, mode="train", cache=None, **kw):
+        """`kw`: `impl="auto"|"ref"` for the LM's kernel ops."""
+        return self._apply(params, self.cfg, batch, mode=mode, cache=cache,
+                           **kw)
+
+    @property
+    def supports_cache_spec(self) -> bool:
+        """CacheSpec layouts (ring / int8) apply to growing KV caches."""
+        return self.cfg.family in ("dense", "moe", "vlm")
+
+    def cache_defs(self, batch: int, seq_len: int, spec=None):
+        """Decode-cache defs; `spec` (a models/cache.CacheSpec or its
+        string form) overrides the config's cache_spec."""
+        if self._cache_defs is None:
+            raise ValueError(f"{self.cfg.name}: no decode cache (family="
+                             f"{self.cfg.family})")
+        if spec is not None and self.supports_cache_spec:
+            return self._cache_defs(self.cfg, batch, seq_len, spec=spec)
+        return self._cache_defs(self.cfg, batch, seq_len)
 
     @property
     def n_params(self) -> int:
@@ -42,8 +61,10 @@ class Model:
 
 
 _FAMILY = {
-    "cnn": (cnn.cnn_defs, cnn.cnn_apply),
-    "mlp": (cnn.mlp_classifier_defs, cnn.mlp_classifier_apply),
+    "dense": (transformer.lm_defs, transformer.lm_apply,
+              transformer.cache_defs),
+    "cnn": (cnn.cnn_defs, cnn.cnn_apply, None),
+    "mlp": (cnn.mlp_classifier_defs, cnn.mlp_classifier_apply, None),
 }
 
 
@@ -54,5 +75,4 @@ def build_model(cfg: ModelConfig) -> Model:
         raise NotImplementedError(
             f"{cfg.name}: family '{cfg.family}' is not ported yet "
             f"(have {sorted(_FAMILY)})")
-    defs, apply = _FAMILY[fam]
-    return Model(cfg, defs, apply)
+    return Model(cfg, *_FAMILY[fam])

@@ -35,6 +35,24 @@ def pdef(shape: Sequence[int], axes: Sequence, dtype=torch.bfloat16,
                     init, tuple(fan_in_axes))
 
 
+def stack_defs(defs, n: int):
+    """Prepend a stacked `layers` axis of size n to every leaf (the layer
+    stack the reference scans over and the port indexes)."""
+    return tree_map(
+        lambda d: ParamDef((n,) + d.shape, d.dtype,
+                           ("layers",) + d.logical_axes, d.init,
+                           tuple(a + 1 for a in d.fan_in_axes)), defs)
+
+
+def _scale(d: ParamDef) -> float:
+    if d.init == "embed":
+        return 1.0
+    fan_in = 1
+    for ax in (d.fan_in_axes or range(max(len(d.shape) - 1, 1))):
+        fan_in *= d.shape[ax] if ax < len(d.shape) else 1
+    return 1.0 / math.sqrt(max(fan_in, 1))
+
+
 def init_leaf(key: np.ndarray, d: ParamDef) -> torch.Tensor:
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=d.dtype)
@@ -42,14 +60,8 @@ def init_leaf(key: np.ndarray, d: ParamDef) -> torch.Tensor:
         return torch.ones(d.shape, dtype=d.dtype)
     if d.init.startswith("scalar:"):
         return torch.full(d.shape, float(d.init.split(":")[1]), dtype=d.dtype)
-    if d.init == "embed":
-        scale = 1.0
-    else:
-        fan_in = 1
-        for ax in (d.fan_in_axes or range(max(len(d.shape) - 1, 1))):
-            fan_in *= d.shape[ax] if ax < len(d.shape) else 1
-        scale = 1.0 / math.sqrt(max(fan_in, 1))
-    return torch.from_numpy(threefry.normal(key, d.shape) * scale).to(d.dtype)
+    return torch.from_numpy(threefry.normal(key, d.shape)
+                            * _scale(d)).to(d.dtype)
 
 
 def init_params(key: np.ndarray, defs, device="cpu"):
@@ -60,6 +72,43 @@ def init_params(key: np.ndarray, defs, device="cpu"):
     keys = threefry.split(key, len(flat))
     return unflatten_like(defs, [init_leaf(k, d).to(device)
                                  for k, d in zip(keys, flat)])
+
+
+def init_params_on_device(seed: int, defs, device, *,
+                          chunk_elements: int = 1 << 28):
+    """Params for `defs` drawn on `device` by one `torch.Generator(device)`
+    seeded with `seed`, leaf after leaf in the reference's leaf order, with
+    `init_leaf`'s rules: fp32 normal x 1/sqrt(fan_in), cast to the leaf's
+    dtype.  The fp32 draw goes in slices of the leading axis of at most
+    `chunk_elements` values, so a (52, 6144, 24576) bf16 stack needs 1 GB
+    of scratch, not 31 GB.
+
+    The numbers are torch's, not Threefry's: these params are not the JAX
+    package's for the same seed and are never compared with them (the
+    tests move params across with `from_reference`, or draw small models
+    with `init_params`)."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = []
+    for d in leaves(defs):
+        if d.init == "zeros":
+            out.append(torch.zeros(d.shape, dtype=d.dtype, device=device))
+        elif d.init == "ones":
+            out.append(torch.ones(d.shape, dtype=d.dtype, device=device))
+        elif d.init.startswith("scalar:"):
+            out.append(torch.full(d.shape, float(d.init.split(":")[1]),
+                                  dtype=d.dtype, device=device))
+        else:
+            t = torch.empty(d.shape, dtype=d.dtype, device=device)
+            flat = t.view(t.shape[0], -1) if t.dim() > 1 else t.view(1, -1)
+            step = max(1, chunk_elements // max(flat.shape[1], 1))
+            for i in range(0, flat.shape[0], step):
+                part = flat[i:i + step]
+                part.copy_(torch.randn(part.shape, generator=gen,
+                                       device=device).mul_(_scale(d)))
+            out.append(t)
+    return unflatten_like(defs, out)
 
 
 def _leaf_from_reference(a, device) -> torch.Tensor:

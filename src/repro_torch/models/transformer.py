@@ -1,0 +1,97 @@
+"""Decoder-only dense LM, port of `repro.models.transformer`, 3 modes:
+
+  train   -- full-sequence forward, returns (logits, aux)
+  prefill -- full-sequence forward, returns (last-position logits, cache)
+  decode  -- single-token step with KV cache, returns (logits, cache)
+
+Layer params stay stacked (L, ...) as the reference's `lax.scan` takes
+them (so `from_reference` moves them leaf for leaf, and a full-width
+model is never held twice); the port loops over L in Python and indexes
+the stack.  Caches are stacked (L, B, S, Hkv, D) too; decode writes each
+layer's new K/V row into them in place.  MoE blocks and the VLM stub
+frontend are later slices.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import cache as kvcache
+from repro_torch.models import layers as L
+from repro_torch.models.param import stack_defs
+from repro_torch.tree import tree_map
+
+
+def block_defs(cfg):
+    return {
+        "ln1": L.norm_defs(cfg),
+        "attn": L.attention_defs(cfg),
+        "ln2": L.norm_defs(cfg),
+        "mlp": L.mlp_defs(cfg),
+    }
+
+
+def lm_defs(cfg):
+    return {
+        "embed": L.embed_defs(cfg),
+        "layers": stack_defs(block_defs(cfg), cfg.num_layers),
+        "final_norm": L.norm_defs(cfg),
+    }
+
+
+def cache_defs(cfg, batch: int, seq_len: int, spec=None):
+    """Decode-cache defs under a CacheSpec (default: cfg.cache_spec).
+    The convention itself lives in models/cache.py."""
+    per_layer = kvcache.attention_cache_defs(cfg, batch, seq_len, spec)
+    return stack_defs(per_layer, cfg.num_layers)
+
+
+def _block_apply(p, cfg, x, positions, mode, cache, impl="auto"):
+    h = L.apply_norm(p["ln1"], x)
+    a, new_cache = L.attention_apply(p["attn"], cfg, h, positions,
+                                     mode=mode, cache=cache, impl=impl)
+    x = x + a
+    h = L.apply_norm(p["ln2"], x)
+    return x + L.mlp_apply(p["mlp"], cfg, h), new_cache
+
+
+def _embed_inputs(params, cfg, batch_inputs):
+    """Tokens only: the VLM stub's patch embeds come with the vlm family."""
+    return L.embed_apply(params["embed"], batch_inputs["tokens"])
+
+
+def lm_apply(params, cfg, batch_inputs, *, mode="train", cache=None,
+             impl="auto"):
+    if mode not in ("train", "prefill", "decode"):
+        raise NotImplementedError(f"mode {mode!r}: paged serving and "
+                                  "chunk_prefill are a later slice")
+    x = _embed_inputs(params, cfg, batch_inputs)
+    B, T = x.shape[0], x.shape[1]
+    if mode == "decode":
+        # cache["len"] is stacked (L, B); all layers share the same length
+        positions = batch_inputs.get("positions")
+        if positions is None:
+            positions = cache["len"][0].reshape(B, 1)
+    else:
+        positions = torch.arange(T, dtype=torch.int32,
+                                 device=x.device)[None].expand(B, T)
+
+    new_caches = []
+    for i in range(cfg.num_layers):
+        lp = tree_map(lambda a: a[i], params["layers"])
+        lc = tree_map(lambda a: a[i], cache) if mode == "decode" else None
+        x, new_cache = _block_apply(lp, cfg, x, positions, mode, lc, impl)
+        if mode == "prefill":
+            new_caches.append(new_cache)
+        elif mode == "decode":
+            new_caches.append(new_cache["len"])
+
+    if mode == "prefill":
+        x = x[:, -1:]  # serving needs only the last position's logits
+    x = L.apply_norm(params["final_norm"], x)
+    logits = L.unembed_apply(params["embed"], x)
+    if mode == "train":
+        return logits, 0.0      # no MoE blocks, so no load-balance loss
+    if mode == "decode":
+        # k/v (and scales) were written in place into the stacked tensors
+        return logits, {**cache, "len": torch.stack(new_caches)}
+    return logits, tree_map(lambda *ls: torch.stack(ls), *new_caches)

@@ -189,3 +189,131 @@ def test_flat_q8_exchange_is_ten_launches_and_equals_plain(cuda):
     want = fl_exchange.exchange_fn(2, "q8", impl="ref", device=cuda)(
         stacked, base)
     assert fl_exchange.max_abs_diff(got, want) == 0.0
+
+
+# -- flash_attention (the LM slice) ------------------------------------------
+
+FA_SHAPES = [  # (B, T, H, Hkv, D, window, causal)
+    (2, 256, 4, 4, 64, 0, True), (2, 256, 4, 2, 64, 0, True),
+    (2, 512, 8, 1, 128, 0, True), (2, 512, 4, 2, 64, 128, True),
+    (2, 1024, 2, 2, 64, 300, True), (1, 1, 4, 1, 8, 0, True),
+    (2, 77, 4, 2, 12, 0, True), (1, 1000, 8, 2, 16, 0, True),
+    (2, 77, 4, 4, 16, 0, False), (1, 130, 48, 1, 128, 0, True),
+    (1, 300, 4, 1, 256, 0, True), (1, 130, 3, 3, 200, 50, False)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_attention_kernel_matches_plain_version(cuda, dtype, tol):
+    """Odd T (1, 77, 130, 1000), MQA with granite's group of 48, windows,
+    non-causal, D from 8 to 256; tolerances of tests/test_kernels.py."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for B, T, H, Hkv, D, window, causal in FA_SHAPES:
+        q = (torch.randn(B, T, H, D, generator=g, device=cuda) * 0.3).to(dtype)
+        k = (torch.randn(B, T, Hkv, D, generator=g, device=cuda) * 0.3
+             ).to(dtype)
+        v = torch.randn(B, T, Hkv, D, generator=g, device=cuda).to(dtype)
+        before = fa.flash_attention_cuda.launches
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention(q, k, v, causal=causal, window=window,
+                               impl="ref")
+        torch.cuda.synchronize()
+        assert fa.flash_attention_cuda.launches == before + 1
+        assert got.dtype == dtype and got.is_contiguous()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_flash_attention_kernel_takes_strided_views(cuda):
+    """q/k/v as the projections leave them (views of wider tensors): the
+    kernel reads them through their strides, with no copy."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(2, 96, 6, 32, generator=g, device=cuda)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:5], qkv[:, :, 5:6]
+    assert not q.is_contiguous()
+    got = fa.flash_attention_cuda(q, k, v)
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2)).transpose(1, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+
+
+def test_flash_attention_kernel_refuses_cross_attention(cuda):
+    from repro_torch.kernels.flash_attention import kernel as fa
+    q = torch.zeros(1, 8, 2, 16, device=cuda)
+    k = torch.zeros(1, 9, 2, 16, device=cuda)
+    before = fa.flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="S = 9"):
+        fa.flash_attention_cuda(q, k, k)
+    assert fa.flash_attention_cuda.launches == before
+
+
+@pytest.mark.parametrize("arch", ["granite-20b", "chatglm3-6b"])
+def test_one_flash_launch_per_layer_per_prefill(cuda, arch):
+    """Prefill and train launch the kernel once per layer; decode never.
+    The logits agree with the plain version's run."""
+    from repro_torch import threefry
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models import build_model
+    model = build_model(get_smoke_config(arch))
+    params = model.init(threefry.key(0), cuda)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 37), device=cuda,
+                         dtype=torch.int32)
+    L = model.cfg.num_layers
+    before = fa.flash_attention_cuda.launches
+    with torch.no_grad():
+        logits, cache = model.apply(params, {"tokens": toks}, mode="prefill")
+        assert fa.flash_attention_cuda.launches == before + L
+        plain, _ = model.apply(params, {"tokens": toks}, mode="prefill",
+                               impl="ref")
+        assert fa.flash_attention_cuda.launches == before + L
+        model.apply(params, {"tokens": toks[:, :1]}, mode="decode",
+                    cache=cache)
+        assert fa.flash_attention_cuda.launches == before + L
+        model.apply(params, {"tokens": toks}, mode="train")
+        assert fa.flash_attention_cuda.launches == before + 2 * L
+    torch.testing.assert_close(logits.float(), plain.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_serve_loop_on_card_matches_solo(cuda):
+    """Continuous batching on the card, granite smoke with an int8 cache
+    (quant8 kernels in the cache path): token-identical to solo serving."""
+    import dataclasses
+    from repro_torch import threefry
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve_loop import Request, ServeLoop
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_smoke_config("granite-20b"),
+                              cache_spec="head/int8")
+    model = build_model(cfg)
+    params = model.init(threefry.key(0), cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (12, 7, 19)]
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    want = []
+    for p in prompts:
+        nxt, cache = prefill(params, {"tokens": torch.as_tensor(
+            p[None], device=cuda)})
+        out = [int(nxt[0])]
+        for pos in range(len(p), len(p) + 5):
+            nxt, cache = decode(params, {
+                "tokens": nxt[:, None],
+                "positions": torch.full((1, 1), pos, dtype=torch.int32,
+                                        device=cuda)}, cache)
+            out.append(int(nxt[0]))
+        want.append(out)
+    q_before = q8kernel.quantize_rows_cuda.launches
+    loop = ServeLoop(model, params, max_batch=2, max_len=128)
+    for i, p in enumerate(prompts):
+        loop.submit(Request(rid=i, prompt=p, max_new=6))
+    done = {r.rid: r.out for r in loop.run_until_drained()}
+    assert [done[i] for i in range(3)] == want
+    assert q8kernel.quantize_rows_cuda.launches > q_before

@@ -72,7 +72,7 @@ def test_configs_equal(name):
 
 def test_unported_arch_is_unknown():
     with pytest.raises(KeyError):
-        get_config("granite-20b")
+        get_config("mixtral-8x22b")
 
 
 def _fleets(n_workers=8, seed=4):
