@@ -47,7 +47,34 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      tokens each: one flash launch per layer per admitted prefill, each
      first token equal to its solo prefill's; token agreement with solo
      generation is reported;
-  10. print the kernel table as JSON, then the result line.
+  10. hold linrec against its plain version over tests/test_kernels.py's
+     shapes, odd T (1, 77, 1,000) and odd D (12, 130), with and without a
+     starting state, fp32 and bf16 (2e-4 / 3e-2), and time it at both
+     recurrent models' prefill scans and a falcon decode step beside its
+     bound and the plain version (no single PyTorch call computes it);
+  11. falcon-mamba-7b at full width (7.27 B params, bf16, drawn on the
+     card): `python -m repro_torch.launch.serve --arch falcon-mamba-7b
+     --full --batch 4 --prompt-len 2048 --gen 32` through its main, which
+     must launch linrec once per layer in the prefill (64) and in each
+     decode step (64); then a batch of 2 x 2,048 prefilled through the
+     kernel, each layer's scan held against the plain version on the same
+     a, b (2e-4), and again through the plain version: last-position
+     logits within 2e-2 scale-relative;
+  12. falcon-mamba-7b in a full-width ServeLoop (4 slots) draining 8
+     requests of 3 to 2,047 prompt tokens, 16 new tokens each: one linrec
+     launch per layer per admitted prefill and per decode step, each first
+     token equal to its solo prefill's; agreement with solo generation is
+     reported;
+  13. recurrentgemma-9b at full width (10.44 B params): `serve.py --arch
+     recurrentgemma-9b --full --batch 2 --prompt-len 2048 --gen 32`, 26
+     linrec and 12 flash launches in the prefill and 26 linrec launches a
+     decode step; then its 2 x 2,048 prefill's attention and scans held
+     layer by layer against the plain versions, and its last-position
+     logits against the plain run's: within 3.5e-2 (see LM_LOGITS_TOL);
+  14. print the kernel table as JSON, then the result line.
+
+Each model is freed before the next one is drawn (40.6, 14.6, then 20.9
+GB of weights).
 """
 from __future__ import annotations
 
@@ -104,9 +131,26 @@ LM_ARCH = "granite-20b"
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
 FA_MAIN = (LM_BATCH, LM_PROMPT, 48, 1, 128)     # its prefill attention
 LM_CHECK_BATCH = 2      # plain-version prefill: fp32 scores, 1.6 GB a layer
-LM_LOGITS_TOL = 2e-2    # scale-relative, tests/test_cache_spec.py's measure
+# full-width last-position logits, kernels vs plain, scale-relative
+# (tests/test_cache_spec.py's measure).  A random-weight recurrentgemma-9b
+# carries one bf16 ulp in its first attention layer to about 3 % of its
+# logits, so its kernels, each within one ulp of the plain version, sit
+# there; its tolerance lies between that and the faults planted by
+# src/repro_torch/examples/logits_gap.py (readings in PERF.md section 6).
+LM_LOGITS_TOL = {"granite-20b": 2e-2, "falcon-mamba-7b": 2e-2,
+                 "recurrentgemma-9b": 3.5e-2}
 LOOP_LENGTHS = (1, 77, 300, 1000, 2047, 513, 64, 1500)
 LOOP_SLOTS, LOOP_MAX_LEN, LOOP_NEW = 4, 4096, 16
+# linrec sweep (B, T, D): test_kernels.py's three shapes, then odd T and D
+LR_SWEEP = [(1, 128, 128), (2, 512, 640), (3, 256, 512), (2, 1, 130),
+            (2, 77, 12), (1, 1000, 130), (3, 77, 4096), (2, 1000, 12)]
+LR_TOL = {"float32": 2e-4, "bfloat16": 3e-2}    # tests/test_kernels.py
+SSM_ARCH, SSM_BATCH = "falcon-mamba-7b", 4
+HYBRID_ARCH, HYBRID_BATCH = "recurrentgemma-9b", 2
+# the prefill scans of the two models, (B, T, D): falcon's D is d_inner x N
+LR_MAIN = {SSM_ARCH: (SSM_BATCH, LM_PROMPT, 8192 * 16),
+           HYBRID_ARCH: (HYBRID_BATCH, LM_PROMPT, 4096)}
+SSM_LOOP_LENGTHS = (3, 77, 300, 1000, 2047, 513, 64, 1500)
 
 
 def check(ok: bool, msg: str):
@@ -423,97 +467,145 @@ def flash_sweep(torch):
     return rec
 
 
-def lm_serve(torch):
-    """The serve entry point at full width; -> (its result, the launches
-    and peak memory of that run)."""
-    from repro_torch.kernels.flash_attention import kernel as fa
+def layer_counts(cfg) -> dict:
+    """Launches of each kernel in one prefill of `cfg`'s model: flash for
+    every attention layer, linrec for every recurrent (SSM, RG-LRU) one."""
+    if cfg.family == "ssm":
+        return {"flash_attention": 0, "linrec": cfg.num_layers}
+    if cfg.family == "hybrid":
+        from repro_torch.models.rglru import hybrid_counts
+        n_super, n_tail = hybrid_counts(cfg)
+        return {"flash_attention": n_super, "linrec": 2 * n_super + n_tail}
+    return {"flash_attention": cfg.num_layers, "linrec": 0}
+
+
+def decode_counts(cfg) -> dict:
+    """Launches of each kernel in one decode step: linrec per recurrent
+    layer; attention decodes without flash."""
+    return {"flash_attention": 0, "linrec": layer_counts(cfg)["linrec"]}
+
+
+def lm_serve(torch, arch: str, batch: int):
+    """The serve entry point at full width, counted from zero; -> (its
+    result, the launches of each kernel in that run, peak memory)."""
     from repro_torch.launch import serve
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_cuda.launches = 0
+    for fn in serve.KERNELS.values():
+        fn.launches = 0
     t0 = time.perf_counter()
-    res = serve.main(["--arch", LM_ARCH, "--full", "--batch", str(LM_BATCH),
+    res = serve.main(["--arch", arch, "--full", "--batch", str(batch),
                       "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa.flash_attention_cuda.launches
+    launches = {name: fn.launches for name, fn in serve.KERNELS.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9
     model = res["model"]
-    L = model.cfg.num_layers
+    steps = res["decode_steps"]
+    per_prefill, per_step = layer_counts(model.cfg), decode_counts(model.cfg)
+    for name, n in launches.items():
+        got = (res["launches"]["prefill"][name],
+               res["launches"]["decode"][name], n)
+        want = (per_prefill[name], per_step[name] * steps,
+                per_prefill[name] + per_step[name] * steps)
+        check(got == want, f"serve {arch} --full: {name} launches (prefill,"
+              f" {steps} decode steps, run) {got}, expected {want}")
     toks = res["tokens"]
-    check(launches == L, f"serve --full: {launches} flash launches, "
-          f"expected {L} (one per layer of the prefill)")
-    check(toks.shape == (LM_BATCH, LM_GEN) and toks.min() >= 0
+    check(toks.shape == (batch, LM_GEN) and toks.min() >= 0
           and toks.max() < model.cfg.vocab_size,
-          f"serve --full: generated ids {toks.shape}, range "
+          f"serve {arch} --full: generated ids {toks.shape}, range "
           f"{toks.min()}..{toks.max()}")
     pre, dec = res["prefill_s"], res["decode_s"]
-    steps = res["decode_steps"]
-    print(f"serve {LM_ARCH} full width ({model.n_params / 1e9:.2f} B params,"
+    print(f"serve {arch} full width ({model.n_params / 1e9:.2f} B params,"
           f" bf16; drawn on the card in {res['init_s']:.1f} s): prefill "
-          f"{LM_BATCH}x{LM_PROMPT} {pre * 1e3:.1f} ms "
-          f"({LM_BATCH * LM_PROMPT / pre:.0f} tok/s), decode "
-          f"{dec * 1e3 / steps:.2f} ms/step ({LM_BATCH * steps / dec:.0f} "
-          f"tok/s), {launches} flash launches, peak memory {peak:.2f} GB, "
+          f"{batch}x{LM_PROMPT} {pre * 1e3:.1f} ms "
+          f"({batch * LM_PROMPT / pre:.0f} tok/s), decode "
+          f"{dec * 1e3 / steps:.2f} ms/step ({batch * steps / dec:.0f} "
+          f"tok/s), launches {launches} ({per_prefill} in the prefill, "
+          f"{per_step} per decode step), peak memory {peak:.2f} GB, "
           f"{wall:.1f} s wall", flush=True)
     return res, launches, peak
 
 
 def lm_kernel_vs_plain(torch, model, params):
-    """A batch of LM_CHECK_BATCH x LM_PROMPT prefilled through the kernel,
-    each layer's attention output held against the plain version on the
-    same q/k/v, then the whole prefill through the plain version."""
+    """A batch of LM_CHECK_BATCH x LM_PROMPT prefilled through the kernels,
+    each layer's attention and scan output held against the plain version
+    on the same inputs, then the whole prefill through the plain versions:
+    last-position logits within the arch's LM_LOGITS_TOL."""
+    from repro_torch.kernels.linrec import ops as linrec_ops
     from repro_torch.models import layers
+    arch = model.cfg.name
     rng = np.random.default_rng(1)
     toks = torch.as_tensor(rng.integers(
         0, model.cfg.vocab_size, (LM_CHECK_BATCH, LM_PROMPT)).astype(
             np.int32), device="cuda")
-    select, errs = layers.select_attention, []
+    select, scan = layers.select_attention, linrec_ops.linrec
+    errs = {"flash_attention": [], "linrec": []}
 
-    def checked(q, k, v, **kw):
+    def checked_attention(q, k, v, **kw):
         out = select(q, k, v, **kw)
         want = select(q, k, v, **{**kw, "impl": "ref"})
-        errs.append(float((out.float() - want.float()).abs().max()))
+        errs["flash_attention"].append(
+            float((out.float() - want.float()).abs().max()))
         return out
 
-    layers.select_attention = checked
+    def checked_scan(a, b, h0=None, *, impl="auto"):
+        out = scan(a, b, h0, impl=impl)
+        want = scan(a, b, h0, impl="ref")
+        errs["linrec"].append(float((out - want).abs().max()))
+        return out
+
+    layers.select_attention, linrec_ops.linrec = checked_attention, \
+        checked_scan
     try:
         with torch.no_grad():
             lk, _ = model.apply(params, {"tokens": toks}, mode="prefill")
     finally:
-        layers.select_attention = select
-    check(len(errs) == model.cfg.num_layers
-          and max(errs) <= FA_TOL["bfloat16"],
-          f"per-layer attention vs plain: {len(errs)} layers, max |diff| "
-          f"{max(errs)}")
+        layers.select_attention, linrec_ops.linrec = select, scan
+    tols = {"flash_attention": FA_TOL["bfloat16"],
+            "linrec": LR_TOL["float32"]}
     with torch.no_grad():
         lr, _ = model.apply(params, {"tokens": toks}, mode="prefill",
                             impl="ref")
+    counts = layer_counts(model.cfg)
     lk, lr = lk[:, -1].float(), lr[:, -1].float()
+    rel = float((lk - lr).abs().max() / lr.abs().max())
+    rms = float((lk - lr).pow(2).mean().sqrt() / lr.pow(2).mean().sqrt())
+    agree = int((lk.argmax(-1) == lr.argmax(-1)).sum())
+    logits_tol = LM_LOGITS_TOL[arch]
+    layer_errs = {name: max(errs[name], default=float("nan"))
+                  for name, n in counts.items() if n}
+    per_layer = "; ".join(
+        f"{name} vs plain per layer max |diff| {err:.3g} "
+        f"({len(errs[name])} layers, tol {tols[name]})"
+        for name, err in layer_errs.items())
+    print(f"{arch} full width, {LM_CHECK_BATCH}x{LM_PROMPT} prefill: "
+          f"{per_layer}; last-position logits scale-relative max |diff| "
+          f"{rel:.3g}, rms |diff| / rms {rms:.3g}, tol {logits_tol:.3g}; "
+          f"greedy agreement {agree}/{LM_CHECK_BATCH}", flush=True)
+    for name, n in counts.items():
+        e = errs[name]
+        check(len(e) == n and max(e, default=0.0) <= tols[name],
+              f"{arch}: per-layer {name} vs plain: {len(e)} layers "
+              f"(expected {n}), max |diff| {max(e, default=0.0)}")
     check(bool(torch.isfinite(lk).all() and torch.isfinite(lr).all()),
           "non-finite prefill logits")
-    rel = float((lk - lr).abs().max() / lr.abs().max())
-    agree = int((lk.argmax(-1) == lr.argmax(-1)).sum())
-    check(rel <= LM_LOGITS_TOL, f"prefill logits, kernel vs plain: "
-          f"scale-relative max |diff| {rel} > {LM_LOGITS_TOL}")
-    print(f"{LM_ARCH} full width, {LM_CHECK_BATCH}x{LM_PROMPT} prefill: "
-          f"attention kernel vs plain per layer max |diff| "
-          f"{max(errs):.3g} ({len(errs)} layers, tol "
-          f"{FA_TOL['bfloat16']}); "
-          f"last-position logits scale-relative max |diff| {rel:.3g} (tol "
-          f"{LM_LOGITS_TOL}), greedy agreement {agree}/{LM_CHECK_BATCH}",
-          flush=True)
-    return {"layer_max_abs_err": max(errs), "logits_rel": rel}
+    check(rel <= logits_tol, f"{arch} prefill logits, kernels vs plain: "
+          f"scale-relative max |diff| {rel} > {logits_tol}")
+    return {"layer_max_abs_err": layer_errs, "logits_rel": rel}
 
 
-def lm_serve_loop(torch, model, params):
-    """ServeLoop at full width; -> (flash launches, admitted prefills)."""
-    from repro_torch.kernels.flash_attention import kernel as fa
+def lm_serve_loop(torch, model, params, lengths):
+    """ServeLoop at full width, counted from zero; -> the launches of each
+    kernel in that run."""
+    from repro_torch.launch import serve
     from repro_torch.launch.serve_loop import Request, ServeLoop
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    arch = model.cfg.name
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
-               for n in LOOP_LENGTHS]
-    fa.flash_attention_cuda.launches = 0
+               for n in lengths]
+    for fn in serve.KERNELS.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     loop = ServeLoop(model, params, max_batch=LOOP_SLOTS,
                      max_len=LOOP_MAX_LEN)
@@ -522,20 +614,24 @@ def lm_serve_loop(torch, model, params):
     done = {r.rid: r.out for r in loop.run_until_drained()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa.flash_attention_cuda.launches
-    L = model.cfg.num_layers
+    launches = {name: fn.launches for name, fn in serve.KERNELS.items()}
     check(sorted(done) == list(range(len(prompts)))
           and all(len(o) == LOOP_NEW for o in done.values()),
           f"ServeLoop: {len(done)} requests done, lengths "
           f"{[len(o) for o in done.values()]}")
-    check(launches == L * len(prompts), f"ServeLoop: {launches} flash "
-          f"launches for {len(prompts)} prefills of {L} layers")
+    per_prefill, per_step = layer_counts(model.cfg), decode_counts(model.cfg)
+    want = {name: per_prefill[name] * len(prompts)
+            + per_step[name] * loop.decode_steps for name in launches}
+    check(launches == want, f"ServeLoop {arch}: launches {launches} for "
+          f"{len(prompts)} prefills and {loop.decode_steps} decode steps, "
+          f"expected {want}")
     check(sorted(loop.free) == list(range(LOOP_SLOTS)), "slots not freed")
-    print(f"ServeLoop {LM_ARCH} full width, {LOOP_SLOTS} slots x "
-          f"{LOOP_MAX_LEN}: {len(prompts)} requests (prompts "
-          f"{LOOP_LENGTHS}) x {LOOP_NEW} tokens in {wall:.2f} s "
-          f"({len(prompts) * LOOP_NEW / wall:.1f} tok/s), {launches} flash "
-          "launches", flush=True)
+    print(f"ServeLoop {arch} full width, {LOOP_SLOTS} slots x "
+          f"{LOOP_MAX_LEN}: {len(prompts)} requests (prompts {lengths}) x "
+          f"{LOOP_NEW} tokens in {wall:.2f} s "
+          f"({len(prompts) * LOOP_NEW / wall:.1f} tok/s), "
+          f"{loop.decode_steps} decode steps, launches {launches}",
+          flush=True)
     prefill, decode = make_prefill_step(model), make_decode_step(model)
     first_equal, agree = 0, 0
     for i, p in enumerate(prompts):
@@ -551,13 +647,76 @@ def lm_serve_loop(torch, model, params):
         first_equal += solo[0] == done[i][0]
         agree += sum(a == b for a, b in zip(solo, done[i]))
         del cache
-    check(first_equal == len(prompts), f"ServeLoop: {first_equal} of "
+    check(first_equal == len(prompts), f"ServeLoop {arch}: {first_equal} of "
           f"{len(prompts)} first tokens equal their solo prefill's")
-    print(f"ServeLoop vs solo generation: first tokens {first_equal}/"
+    print(f"ServeLoop {arch} vs solo generation: first tokens {first_equal}/"
           f"{len(prompts)} equal; {agree}/{len(prompts) * LOOP_NEW} tokens "
           "agree (bf16 near-ties may flip across batch sizes; reported, "
           "not pinned)", flush=True)
     return launches
+
+
+def linrec_sweep(torch):
+    """linrec vs its plain version over LR_SWEEP x dtype x (zero, random
+    h0); then both models' prefill scans and a falcon decode step, timed;
+    -> the records of the timed shapes, by name."""
+    from repro_torch.kernels.linrec.kernel import linrec_cuda
+    from repro_torch.kernels.linrec.ref import linrec_ref
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def ab(B, T, D, dtype):
+        a = 0.7 + 0.299 * torch.rand(B, T, D, generator=g, device="cuda")
+        b = 0.1 * torch.randn(B, T, D, generator=g, device="cuda")
+        return a.to(dtype), b.to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for B, T, D in LR_SWEEP:
+            a, b = ab(B, T, D, dtype)
+            for h0 in (None, torch.randn(B, D, generator=g, device="cuda")):
+                got = linrec_cuda(a, b, h0)
+                want = linrec_ref(a, b, h0)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                check(err <= LR_TOL[name] and bool(torch.isfinite(got).all()),
+                      f"linrec {name} B={B} T={T} D={D} h0="
+                      f"{h0 is not None}: max |diff| {err} > {LR_TOL[name]}")
+                print(f"linrec {name} B={B} T={T} D={D} h0="
+                      f"{'random' if h0 is not None else 'zeros'}: max "
+                      f"|diff| {err:.3g} (tol {LR_TOL[name]})", flush=True)
+    shapes = {f"{arch} prefill": (*shape, False)
+              for arch, shape in LR_MAIN.items()}
+    shapes[f"{SSM_ARCH} decode step"] = (SSM_BATCH, 1, 8192 * 16, True)
+    recs = {}
+    for label, (B, T, D, with_h0) in shapes.items():
+        a, b = ab(B, T, D, torch.float32)
+        h0 = torch.randn(B, D, generator=g, device="cuda") if with_h0 \
+            else None
+        got = linrec_cuda(a, b, h0)
+        err = float((got - linrec_ref(a, b, h0)).abs().max())
+        check(err <= LR_TOL["float32"], f"linrec {label}: {err}")
+        del got
+        iters = 20 if T == 1 else 5
+        ms = graph_ms(torch, lambda: linrec_cuda(a, b, h0), iters)
+        plain_ms = graph_ms(torch, lambda: linrec_ref(a, b, h0),
+                            iters if T == 1 else 1)
+        call_ms = eager_ms(torch, lambda: linrec_cuda(a, b, h0), iters)
+        n = B * T * D
+        nbytes = 12 * n + (4 * B * D if with_h0 else 0)
+        b_ms, b_by = bound(nbytes, 2 * n)
+        recs[label] = {"shape": (B, T, D), "max_abs_err": err, "ms": ms,
+                       "plain_ms": plain_ms, "library_ms": None,
+                       "call_ms": call_ms, "bound_ms": b_ms,
+                       "bound_by": b_by}
+        print(f"linrec {label} B={B} T={T} D={D} fp32"
+              f"{' from h0' if with_h0 else ''}: {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
+              f"library none, bound {b_ms:.4f} ms ({b_by}; "
+              f"{nbytes / 1e9:.3f} GB; {b_ms / ms:.2%} of it), python call "
+              f"{call_ms:.4f} ms, max |diff| {err:.3g}", flush=True)
+        del a, b, h0
+        torch.cuda.empty_cache()
+    return recs
 
 
 def main() -> int:
@@ -570,6 +729,7 @@ def main() -> int:
     from repro_torch.examples import fl_exchange, quickstart
     from repro_torch.kernels.fed_agg import kernel
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.linrec import kernel as lrk
     from repro_torch.kernels.quant8 import kernel as q8
     from repro_torch.runtime import resolve_device
     from repro_torch.tree import leaves, tree_map
@@ -589,8 +749,10 @@ def main() -> int:
         path = Path(library()._name).relative_to(ROOT)
         return f"built {name} in {time.perf_counter() - t0:.1f} s -> {path}"
     with ThreadPoolExecutor() as pool:
-        for line in pool.map(build, ("fed_agg", "quant8", "flash_attention"),
-                             (kernel.library, q8.library, fa.library)):
+        for line in pool.map(build, ("fed_agg", "quant8", "flash_attention",
+                                     "linrec"),
+                             (kernel.library, q8.library, fa.library,
+                              lrk.library)):
             print(line, flush=True)
 
     # 3. kernel vs plain version (launches here are not the main path's)
@@ -753,17 +915,40 @@ def main() -> int:
     fa_main = flash_sweep(torch)
 
     # 8. the LM serving path at full width, counted from zero
-    res, serve_launches, peak = lm_serve(torch)
+    res, lm_launches, lm_peak = lm_serve(torch, LM_ARCH, LM_BATCH)
     model, params = res["model"], res["params"]
     del res
     lm_kernel_vs_plain(torch, model, params)
 
     # 9. continuous batching at full width, counted from zero
-    loop_launches = lm_serve_loop(torch, model, params)
+    loop_launches = lm_serve_loop(torch, model, params, LOOP_LENGTHS)
     del model, params
     torch.cuda.empty_cache()
 
-    # 10. results
+    # 10. linrec vs plain version (launches here are not the path's)
+    lr_main = linrec_sweep(torch)
+
+    # 11. falcon-mamba-7b at full width, counted from zero
+    res, ssm_launches, ssm_peak = lm_serve(torch, SSM_ARCH, SSM_BATCH)
+    model, params = res["model"], res["params"]
+    del res
+    lm_kernel_vs_plain(torch, model, params)
+
+    # 12. falcon-mamba-7b in the ServeLoop, counted from zero
+    ssm_loop_launches = lm_serve_loop(torch, model, params, SSM_LOOP_LENGTHS)
+    del model, params
+    torch.cuda.empty_cache()
+
+    # 13. recurrentgemma-9b at full width, counted from zero
+    res, hybrid_launches, hybrid_peak = lm_serve(torch, HYBRID_ARCH,
+                                                 HYBRID_BATCH)
+    model, params = res["model"], res["params"]
+    del res
+    lm_kernel_vs_plain(torch, model, params)
+    del model, params
+    torch.cuda.empty_cache()
+
+    # 14. results
     main_row = next(r for r in rows if (r["K"], r["N"], r["dtype"])
                     == MAIN_SHAPE)
     table = [{
@@ -789,16 +974,31 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:105",
-        "launches": serve_launches + loop_launches,
+        "launches": sum(r["flash_attention"] for r in (
+            lm_launches, loop_launches, hybrid_launches)),
         "max_abs_err": fa_main["max_abs_err"], "ms": fa_main["ms"],
         "plain_ms": fa_main["plain_ms"], "bound_ms": fa_main["bound_ms"],
         "bound_by": fa_main["bound_by"],
         "library_ms": fa_main["library_ms"]})
+    lr = lr_main[f"{SSM_ARCH} prefill"]
+    table.append({
+        "name": "linrec", "route": "cuda",
+        "source": "src/repro_torch/kernels/linrec/csrc/linrec.cu",
+        "replaces": "src/repro/kernels/linrec/kernel.py:66",
+        "launches": sum(r["linrec"] for r in (
+            ssm_launches, ssm_loop_launches, hybrid_launches)),
+        "max_abs_err": max(r["max_abs_err"] for r in lr_main.values()),
+        "ms": lr["ms"], "plain_ms": lr["plain_ms"],
+        "bound_ms": lr["bound_ms"], "bound_by": lr["bound_by"],
+        "library_ms": lr["library_ms"]})
     print(f"quant8 sweep: {len(q8_rows)} shapes x 2 kernels, all bit-equal",
           flush=True)
-    print(f"flash_attention launches: {serve_launches} in the full-width "
-          f"serve, {loop_launches} in the ServeLoop; serve peak memory "
-          f"{peak:.2f} GB", flush=True)
+    print(f"launches: {LM_ARCH} serve {lm_launches}, ServeLoop "
+          f"{loop_launches}; {SSM_ARCH} serve {ssm_launches}, ServeLoop "
+          f"{ssm_loop_launches}; {HYBRID_ARCH} serve {hybrid_launches}. "
+          f"Serve peak memory: {LM_ARCH} {lm_peak:.2f} GB, {SSM_ARCH} "
+          f"{ssm_peak:.2f} GB, {HYBRID_ARCH} {hybrid_peak:.2f} GB",
+          flush=True)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

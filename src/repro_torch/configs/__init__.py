@@ -2,8 +2,8 @@
 
 `get_config(name)` / `get_smoke_config(name)` behave as in
 `repro.configs`, restricted to what the port has: the paper's own Tier-A
-models and the dense LMs.  The MoE, VLM, SSM, hybrid and enc-dec archs
-are not registered yet (ROADMAP queue 1)."""
+models, the dense LMs and the recurrent LMs (ssm, hybrid).  The MoE, VLM
+and enc-dec archs are not registered yet (ROADMAP queue 1)."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +15,8 @@ _ARCHS = {
     "chatglm3-6b": "chatglm3_6b",
     "granite-20b": "granite_20b",
     "minitron-8b": "minitron_8b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
     # the paper's own workloads (Tier-A FL experiments)
     "flight-cnn-mnist": "flight_cnn",
     "flight-cnn-cifar": "flight_cnn",

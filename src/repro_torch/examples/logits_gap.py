@@ -1,0 +1,145 @@
+"""How far an LM's last-position prefill logits move: the kernels against
+the plain versions (the gap chip_smoke.py holds), one rounding nudged in
+the plain path (the model's own noise floor), and faults planted in the
+kernels' outputs (what that check must catch).  These readings set
+chip_smoke.py's per-arch LM_LOGITS_TOL.
+
+One arch at full width, params drawn on the card from seed 0 as
+`launch/serve.py` draws them, and chip_smoke.py's check batch: 2 x 2,048
+tokens from numpy's default_rng(1).  Each reading is max |diff| /
+max |plain| over the last position's logits, against the plain prefill:
+
+  kernels      flash_attention and linrec as shipped
+  nudge        the plain path with one bf16 ulp (x (1 + 2^-8)) nudged into
+               0.1 % of the first mixer layer's outputs
+  drop_head    the kernels, head 0 of the first attention layer zeroed
+  half_window  the kernels, every attention layer at half its window (half
+               the prompt where the layer has none)
+  lost_carry   the kernels, the first recurrent layer's scan restarted from
+               zero LOST_CARRY_STEPS steps before the end
+
+  PYTHONPATH=src python -m repro_torch.examples.logits_gap \
+      --arch recurrentgemma-9b
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels.linrec import ops as linrec_ops
+from repro_torch.models import build_model, layers
+from repro_torch.models.param import init_params_on_device
+from repro_torch.runtime import resolve_device
+
+BATCH, PROMPT = 2, 2048
+NUDGE_FRACTION = 1e-3
+LOST_CARRY_STEPS = 64
+
+
+def nudge(i, fn, *args, **kw):
+    out = fn(*args, **kw)
+    if i:
+        return out
+    g = torch.Generator(device=out.device).manual_seed(0)
+    hit = torch.rand(out.shape, generator=g, device=out.device) \
+        < NUDGE_FRACTION
+    return torch.where(hit, (out.float() * (1 + 2 ** -8)).to(out.dtype), out)
+
+
+def drop_head(i, fn, q, k, v, **kw):
+    out = fn(q, k, v, **kw)                 # (B, T, H, D)
+    if i == 0:
+        out = out.clone()
+        out[:, :, 0] = 0
+    return out
+
+
+def half_window(i, fn, q, k, v, *, window=0, **kw):
+    return fn(q, k, v, window=(window or q.shape[1]) // 2, **kw)
+
+
+def lost_carry(i, fn, a, b, h0=None, **kw):
+    if i:
+        return fn(a, b, h0, **kw)
+    t = a.shape[-2] - LOST_CARRY_STEPS
+    head = fn(a[..., :t, :].contiguous(), b[..., :t, :].contiguous(), h0,
+              **kw)
+    tail = fn(a[..., t:, :].contiguous(), b[..., t:, :].contiguous(), None,
+              **kw)
+    return torch.cat([head, tail], dim=-2)
+
+
+def prefill_logits(model, params, toks, *, impl="auto", attention=None,
+                   scan=None):
+    """Last-position logits (fp32) of one prefill; `attention` / `scan`
+    wrap the layers' attention and scan calls as (layer index, the op,
+    its arguments) -> output."""
+    select, lin = layers.select_attention, linrec_ops.linrec
+    seen = {"attention": 0, "scan": 0}
+
+    def wrap(kind, op, hook):
+        def call(*args, **kw):
+            i = seen[kind]
+            seen[kind] += 1
+            return hook(i, op, *args, **kw)
+        return call
+
+    if attention:
+        layers.select_attention = wrap("attention", select, attention)
+    if scan:
+        linrec_ops.linrec = wrap("scan", lin, scan)
+    try:
+        with torch.no_grad():
+            logits, _ = model.apply(params, {"tokens": toks}, mode="prefill",
+                                    impl=impl)
+    finally:
+        layers.select_attention, linrec_ops.linrec = select, lin
+    return logits[:, -1].float()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="recurrentgemma-9b")
+    args = ap.parse_args(argv)
+    dev = resolve_device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    model = build_model(get_config(args.arch))
+    params = init_params_on_device(0, model.param_defs(), dev)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, model.cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32),
+        device=dev)
+    family = model.cfg.family
+    has_attention, has_scan = family != "ssm", family in ("ssm", "hybrid")
+    plain = prefill_logits(model, params, toks, impl="ref")
+    runs = {"kernels": {}}
+    if has_attention:
+        runs["nudge"] = {"impl": "ref", "attention": nudge}
+        runs["drop_head"] = {"attention": drop_head}
+        runs["half_window"] = {"attention": half_window}
+    else:
+        runs["nudge"] = {"impl": "ref", "scan": nudge}
+    if has_scan:
+        runs["lost_carry"] = {"scan": lost_carry}
+    scale = float(plain.abs().max())
+    gaps = {}
+    for name, kw in runs.items():
+        got = prefill_logits(model, params, toks, **kw)
+        gaps[name] = float((got - plain).abs().max()) / scale
+        agree = int((got.argmax(-1) == plain.argmax(-1)).sum())
+        print(f"{args.arch} full width, {BATCH}x{PROMPT} prefill, {name}: "
+              f"last-position logits scale-relative max |diff| "
+              f"{gaps[name]:.4g}, greedy agreement {agree}/{BATCH}",
+              flush=True)
+    print(json.dumps({"arch": args.arch, "gaps": gaps}))
+
+
+if __name__ == "__main__":
+    main()

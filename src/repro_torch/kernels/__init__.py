@@ -8,5 +8,8 @@
 #                      per row (the compressed island exchange, int8 KV caches)
 #   flash_attention -- causal / sliding-window GQA attention forward, fp32
 #                      online softmax (every LM prefill layer)
+#   linrec          -- diagonal linear recurrence h_t = a_t h_{t-1} + b_t
+#                      from a starting state (the SSM and RG-LRU scans, in
+#                      prefill and decode)
 #
-# Still to port (ROADMAP queue 2): linrec.
+# Every Pallas TPU kernel of the reference now has its counterpart here.

@@ -6,6 +6,10 @@ requests join mid-flight (a prefill of the request alone, written into a
 free slot), one batched decode step runs for ALL slots each tick with
 per-slot positions, and finished slots are recycled.  Greedy decode is
 token-identical to serving each request alone (tests/test_torch_serve.py).
+It serves the dense family and the SSM (falcon-mamba), whose per-slot
+conv windows and states are written into the batched cache the same way;
+the hybrid (recurrentgemma) is served on the fixed-batch path only, as the
+reference's loop cannot serve its nested cache.
 
 The reference's layout/mesh plumbing (`mesh=`, `layout=`, the policy's
 cache-spec choice) belongs to the planning layer and waits for it; the
@@ -69,6 +73,11 @@ class ServeLoop(_ServeBase):
 
     def __init__(self, model, params, *, max_batch: int = 4,
                  max_len: int = 512, cache_spec: str | None = None):
+        if model.cfg.family == "hybrid":
+            raise NotImplementedError(
+                f"{model.cfg.name}: the hybrid family's nested cache is "
+                "served on the fixed-batch path (launch/serve.py); the "
+                "reference's ServeLoop cannot serve it either")
         super().__init__(model, params, max_batch=max_batch)
         if cache_spec and model.supports_cache_spec \
                 and cache_spec != model.cfg.cache_spec:
@@ -84,6 +93,7 @@ class ServeLoop(_ServeBase):
             model.cache_defs(max_batch, max_len))
         self._prefill = make_prefill_step(model)
         self._decode = make_decode_step(model)
+        self.decode_steps = 0     # batched decode steps run so far
 
     # -- slot management -------------------------------------------------
     def _admit(self):
@@ -103,12 +113,18 @@ class ServeLoop(_ServeBase):
 
     def _write_slot(self, slot: int, pcache, true_len: int):
         """Copy a single-sequence prefill cache (leaves (L, 1, ...)) into
-        the batched cache (leaves (L, B, ...)) at `slot`, in place; the
-        time axis is padded with zeros or cropped to the slot capacity."""
+        the batched cache (leaves (L, B, ...)) at `slot`, in place.  Leaves
+        of the slot's own shape are copied whole: the SSM's conv windows
+        (L, B, w-1, di), which a prefill always fills (left-padded), and
+        states (L, B, di, N).  K/V leaves have a time axis, padded with
+        zeros or cropped to the slot capacity."""
         for key, bc in self.cache.items():
             pc = pcache[key]
             if key == "len":                              # (L, B) lengths
                 bc[:, slot] = pc[:, 0].clamp(max=true_len)
+                continue
+            if pc.shape[2:] == bc.shape[2:]:
+                bc[:, slot] = pc[:, 0].to(bc.dtype)
                 continue
             width = min(pc.shape[2], bc.shape[2])
             bc[:, slot, :width] = pc[:, 0, :width].to(bc.dtype)
@@ -127,6 +143,7 @@ class ServeLoop(_ServeBase):
             self.params,
             {"tokens": self._next[:, None], "positions": positions},
             self.cache)
+        self.decode_steps += 1
         self._next = nxt.to(torch.int32)
         nxt_host = nxt.cpu().numpy()
         finished = []

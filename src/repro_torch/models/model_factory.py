@@ -1,7 +1,7 @@
 """Unified model interface: one `Model` object per architecture config.
 
 Model exposes, as `repro.models.Model` does for the families ported so far
-(cnn, mlp, dense):
+(cnn, mlp, dense, ssm, hybrid):
   param_defs()                      -> dict tree of ParamDef
   init(key, device)                 -> concrete params on `device`
   apply(params, batch, mode, cache) -> (logits, aux_or_cache)
@@ -15,7 +15,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from repro_torch.models import cnn, transformer
+from repro_torch.models import cnn, rglru, ssm, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import count_params, init_params
 from repro_torch.runtime import resolve_device
@@ -63,6 +63,9 @@ class Model:
 _FAMILY = {
     "dense": (transformer.lm_defs, transformer.lm_apply,
               transformer.cache_defs),
+    "ssm": (ssm.ssm_lm_defs, ssm.ssm_lm_apply, ssm.ssm_cache_defs),
+    "hybrid": (rglru.hybrid_lm_defs, rglru.hybrid_lm_apply,
+               rglru.hybrid_cache_defs),
     "cnn": (cnn.cnn_defs, cnn.cnn_apply, None),
     "mlp": (cnn.mlp_classifier_defs, cnn.mlp_classifier_apply, None),
 }

@@ -317,3 +317,125 @@ def test_serve_loop_on_card_matches_solo(cuda):
     done = {r.rid: r.out for r in loop.run_until_drained()}
     assert [done[i] for i in range(3)] == want
     assert q8kernel.quantize_rows_cuda.launches > q_before
+
+
+# linrec: (B, T, D) with odd T and D, with and without a starting state
+LINREC_SHAPES = [(1, 128, 128), (2, 512, 640), (3, 256, 512), (2, 1, 12),
+                 (2, 77, 130), (1, 1000, 12), (4, 33, 4096)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linrec_kernel_equals_plain_version(cuda, dtype):
+    """One product and one sum a step, each rounded, in both: the kernel
+    equals ref.py bit for bit (test_kernels.py's 2e-4 / 3e-2 would do)."""
+    from repro_torch.kernels.linrec import kernel as lr
+    from repro_torch.kernels.linrec.ops import linrec
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for B, T, D in LINREC_SHAPES:
+        a = (0.7 + 0.299 * torch.rand(B, T, D, generator=g, device=cuda)
+             ).to(dtype)
+        b = (0.1 * torch.randn(B, T, D, generator=g, device=cuda)).to(dtype)
+        for h0 in (None, torch.randn(B, D, generator=g, device=cuda)):
+            before = lr.linrec_cuda.launches
+            got = linrec(a, b, h0)
+            want = linrec(a, b, h0, impl="ref")
+            torch.cuda.synchronize()
+            assert lr.linrec_cuda.launches == before + 1
+            assert got.dtype == torch.float32 and got.shape == (B, T, D)
+            assert torch.equal(got, want), (B, T, D, h0 is None)
+
+
+def test_linrec_kernel_takes_strided_views(cuda):
+    """a and b as views along batch and time (d contiguous): read through
+    their strides, as the (B, T, di, N) -> (B, T, di * N) view is."""
+    from repro_torch.kernels.linrec import kernel as lr
+    from repro_torch.kernels.linrec.ref import linrec_ref
+    g = torch.Generator(device=cuda).manual_seed(1)
+    ab = torch.rand(3, 50, 2, 40, generator=g, device=cuda)
+    a, b = ab[:, :, 0], ab[:, :, 1]                     # (3, 50, 40) views
+    assert not a.is_contiguous()
+    got = lr.linrec_cuda(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, linrec_ref(a, b))
+
+
+def test_linrec_kernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.linrec import kernel as lr
+    a = torch.rand(2, 8, 16, device=cuda)
+    before = lr.linrec_cuda.launches
+    with pytest.raises(TypeError):
+        lr.linrec_cuda(a, a.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        lr.linrec_cuda(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(ValueError, match="h0"):
+        lr.linrec_cuda(a, a, torch.zeros(2, 15, device=cuda))
+    assert lr.linrec_cuda.launches == before
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
+def test_one_linrec_launch_per_recurrent_layer(cuda, arch):
+    """Prefill and each decode step launch linrec once per recurrent layer
+    (the hybrid's attention layers launch flash in prefill); the plain
+    run launches nothing, and its logits agree with the kernels'."""
+    from repro_torch import threefry
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.linrec import kernel as lr
+    from repro_torch.models import build_model
+    from repro_torch.models.rglru import hybrid_counts
+    model = build_model(get_smoke_config(arch))
+    params = model.init(threefry.key(0), cuda)
+    if arch == "falcon-mamba-7b":
+        n_rec, n_attn = model.cfg.num_layers, 0
+    else:
+        n_super, n_tail = hybrid_counts(model.cfg)
+        n_rec, n_attn = 2 * n_super + n_tail, n_super
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 37), device=cuda,
+                         dtype=torch.int32)
+    lr0, fa0 = lr.linrec_cuda.launches, fa.flash_attention_cuda.launches
+    with torch.no_grad():
+        logits, cache = model.apply(params, {"tokens": toks}, mode="prefill")
+        assert lr.linrec_cuda.launches == lr0 + n_rec
+        assert fa.flash_attention_cuda.launches == fa0 + n_attn
+        plain, _ = model.apply(params, {"tokens": toks}, mode="prefill",
+                               impl="ref")
+        assert lr.linrec_cuda.launches == lr0 + n_rec
+        model.apply(params, {"tokens": toks[:, :1]}, mode="decode",
+                    cache=cache)
+        assert lr.linrec_cuda.launches == lr0 + 2 * n_rec
+        assert fa.flash_attention_cuda.launches == fa0 + n_attn
+    torch.testing.assert_close(logits.float(), plain.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_ssm_serve_loop_on_card_matches_solo(cuda):
+    """falcon-mamba smoke in a 2-slot ServeLoop on the card, a 2-token
+    prompt among them: token-identical to solo serving."""
+    from repro_torch import threefry
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve_loop import Request, ServeLoop
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    model = build_model(get_smoke_config("falcon-mamba-7b"))
+    params = model.init(threefry.key(0), cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
+               for n in (12, 2, 19)]
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    want = []
+    for p in prompts:
+        nxt, cache = prefill(params, {"tokens": torch.as_tensor(
+            p[None], device=cuda)})
+        out = [int(nxt[0])]
+        for pos in range(len(p), len(p) + 5):
+            nxt, cache = decode(params, {
+                "tokens": nxt[:, None],
+                "positions": torch.full((1, 1), pos, dtype=torch.int32,
+                                        device=cuda)}, cache)
+            out.append(int(nxt[0]))
+        want.append(out)
+    loop = ServeLoop(model, params, max_batch=2, max_len=64)
+    for i, p in enumerate(prompts):
+        loop.submit(Request(rid=i, prompt=p, max_new=6))
+    done = {r.rid: r.out for r in loop.run_until_drained()}
+    assert [done[i] for i in range(3)] == want

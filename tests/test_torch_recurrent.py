@@ -1,0 +1,428 @@
+"""The port's recurrent LMs (models/ssm.py, models/rglru.py, the ssm and
+hybrid families, their configs) against the JAX package on the smoke
+configs of falcon-mamba-7b and recurrentgemma-9b, params carried across
+with `from_reference`: train-mode logits, prefill logits and caches, and
+three teacher-forced decode steps; then the port against its own teacher
+forcing, and the SSM's continuous batching against solo serving.
+
+Tolerances, measured gaps beside them (CPU, this file's inputs; max of
+train, prefill, 3 decode steps, logits and every float cache leaf):
+
+  falcon-mamba-7b  scale-relative max 5e-3, rms 1e-3.  Measured: 7.1e-5 /
+                   7.7e-6 (one bf16 ulp in one decode step; train, prefill
+                   and the other steps 0, caches 1.7e-7: every op rounds
+                   where the reference's does, and the scan sums in another
+                   order in fp32).  The margin is for a bf16 ulp that a
+                   1e-7 fp32 difference may flip elsewhere.
+  recurrentgemma-9b  scale-relative max 3e-2, rms 2e-2 (logits of rms 1).
+                   Measured: 0.0188 / 0.0142 (logits 0.0178 / 0.0142; the
+                   largest relative gap is the RG-LRU state after the
+                   second decode step).  test_torch_lm.py's 2e-2 / 1e-2
+                   cannot hold: the jitted reference differs from itself
+                   run op by op by 0.0153 / 0.0137, and the port at the
+                   reference's rounding points equals the op-by-op run bit
+                   for bit (test_hybrid_bit_identical_to_jax_op_by_op_...).
+
+Reference faults this file works around (ROADMAP queue 3): the JAX scan
+takes T % 256 == 0 or T <= 256 only, so T stays small here; the JAX SSM
+prefill keeps fewer than conv_width - 1 conv rows for prompts of 1 or 2
+tokens, so those prompts are held against the port's own teacher forcing,
+not against JAX.
+"""
+import dataclasses
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import get_smoke_config as jax_smoke
+from repro.models import build_model as jax_build
+from repro.models.ssm import _causal_conv as jax_causal_conv
+from repro_torch import threefry
+from repro_torch.configs import get_config, get_smoke_config, list_archs
+from repro_torch.examples import logits_gap
+from repro_torch.launch import serve
+from repro_torch.launch.serve_loop import Request, ServeLoop
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models import build_model
+from repro_torch.models import layers
+from repro_torch.models.param import from_reference
+from repro_torch.models.ssm import _causal_conv, conv_state
+from repro_torch.tree import leaves
+
+ARCHS = ["falcon-mamba-7b", "recurrentgemma-9b"]
+# (scale-relative max, rms) per arch; see the module docstring
+TOL = {"falcon-mamba-7b": (5e-3, 1e-3), "recurrentgemma-9b": (3e-2, 2e-2)}
+# the port's decode against its own teacher forcing: test_torch_lm.py's
+SELF_TOL = (2e-2, 1e-2)
+N_PARAMS = {"falcon-mamba-7b": 7_272_665_088,
+            "recurrentgemma-9b": 10_444_984_320}
+
+
+def _np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x, np.float32)
+
+
+def _close(got, want, tol):
+    """max |diff| <= tol[0] * max |want| and rms |diff| <= tol[1]."""
+    rel, rms = tol
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape
+    d = np.abs(got - want)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    assert d.max() <= rel * scale, f"scale-relative max {d.max() / scale:.4g}"
+    assert np.sqrt((d ** 2).mean()) <= rms, \
+        f"rms {np.sqrt((d ** 2).mean()):.4g}"
+
+
+def _pair(arch, seed=3):
+    jm, tm = jax_build(jax_smoke(arch)), build_model(get_smoke_config(arch))
+    jp = jm.init(jax.random.key(seed))
+    return jm, tm, jp, from_reference(jp)
+
+
+def _tokens(cfg, B, T, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32)
+
+
+def _defs_key(d):
+    return (d.shape, str(d.dtype).split(".")[-1], d.init, d.fan_in_axes)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_and_defs_match_jax(arch):
+    assert arch in list_archs()
+    for tget, jget in ((get_config, jax_get_config),
+                       (get_smoke_config, jax_smoke)):
+        assert dataclasses.asdict(tget(arch)) == dataclasses.asdict(jget(arch))
+        tm, jm = build_model(tget(arch)), jax_build(jget(arch))
+        assert tm.n_params == jm.n_params
+        assert not tm.supports_cache_spec
+        for tdefs, jdefs in ((tm.param_defs(), jm.param_defs()),
+                             (tm.cache_defs(2, 40), jm.cache_defs(2, 40))):
+            jl = jax.tree.leaves(jdefs,
+                                 is_leaf=lambda d: hasattr(d, "fan_in_axes"))
+            assert [_defs_key(d) for d in leaves(tdefs)] == \
+                [(d.shape, str(jnp.dtype(d.dtype)), d.init, d.fan_in_axes)
+                 for d in jl]
+    assert build_model(get_config(arch)).n_params == N_PARAMS[arch]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_threefry_init_matches_jax_init(arch):
+    """Model.init walks the tree (the hybrid's nested super / tail{i}) in
+    jax.tree's leaf order, so one seed gives the reference's params."""
+    jm, tm = jax_build(jax_smoke(arch)), build_model(get_smoke_config(arch))
+    jp = jm.init(jax.random.key(5))
+    tp = tm.init(threefry.key(5), "cpu")
+    paths = [jax.tree_util.keystr(p) for p, _ in
+             jax.tree_util.tree_flatten_with_path(jp)[0]]
+    assert len(paths) == len(leaves(tp))
+    for path, a, b in zip(paths, jax.tree.leaves(jp), leaves(tp)):
+        assert tuple(b.shape) == a.shape, path
+        np.testing.assert_allclose(_np(b), _np(a), rtol=8e-3, atol=1e-6,
+                                   err_msg=path)
+
+
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
+@pytest.mark.parametrize("T", [1, 2, 19])
+def test_causal_conv_bit_equal(T, dtype):
+    rng = np.random.default_rng(T)
+    x, w, b = (jnp.asarray(rng.normal(size=s), dtype)
+               for s in ((2, T, 24), (4, 24), (24,)))
+    got = _causal_conv(*(from_reference(np.asarray(v)) for v in (x, w, b)))
+    want = jax_causal_conv(x, w, b)
+    assert got.dtype == from_reference(np.asarray(x)).dtype
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def test_conv_state_left_pads_short_prompts():
+    x = torch.arange(1, 2 * 5 * 3 + 1, dtype=torch.bfloat16).reshape(2, 5, 3)
+    assert torch.equal(conv_state(x, 4), x[:, 2:])
+    short = conv_state(x[:, :2], 4)
+    assert short.shape == (2, 3, 3)
+    assert torch.equal(short[:, 0], torch.zeros(2, 3, dtype=torch.bfloat16))
+    assert torch.equal(short[:, 1:], x[:, :2])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_logits_match_jax(arch):
+    jm, tm, jp, tp = _pair(arch)
+    toks = _tokens(jm.cfg, 2, 19)
+    jl, jaux = jm.apply(jp, {"tokens": jnp.asarray(toks)}, mode="train")
+    tl, taux = tm.apply(tp, {"tokens": torch.as_tensor(toks)}, mode="train")
+    assert tl.dtype == torch.bfloat16 and tuple(tl.shape) == jl.shape
+    assert taux == 0.0 and float(jaux) == 0.0
+    _close(tl, jl, TOL[arch])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_match_jax(arch):
+    """Prefill logits and every cache leaf, then three teacher-forced
+    decode steps (each step's logits and every cache leaf after it)."""
+    jm, tm, jp, tp = _pair(arch, seed=4)
+    B, T = 2, 16
+    toks = _tokens(jm.cfg, B, T + 3, seed=1)
+    jl, jc = jm.apply(jp, {"tokens": jnp.asarray(toks[:, :T])},
+                      mode="prefill")
+    tl, tc = tm.apply(tp, {"tokens": torch.as_tensor(toks[:, :T])},
+                      mode="prefill")
+    assert tl.shape == (B, 1, jm.cfg.vocab_size)
+    _close(tl, jl, TOL[arch])
+
+    def caches_close():
+        jflat = jax.tree_util.tree_flatten_with_path(jc)[0]
+        tflat = leaves(tc)
+        assert len(jflat) == len(tflat)
+        for (path, a), b in zip(jflat, tflat):
+            assert tuple(b.shape) == a.shape, jax.tree_util.keystr(path)
+            if a.dtype == jnp.int32:
+                np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+            else:
+                _close(b, a, TOL[arch])
+
+    caches_close()
+    for i in range(3):
+        b = {"tokens": toks[:, T + i:T + i + 1],
+             "positions": np.full((B, 1), T + i, np.int32)}
+        jl, jc = jm.apply(jp, {k: jnp.asarray(v) for k, v in b.items()},
+                          mode="decode", cache=jc)
+        tl, tc = tm.apply(tp, {k: torch.as_tensor(v) for k, v in b.items()},
+                          mode="decode", cache=tc)
+        _close(tl, jl, TOL[arch])
+        caches_close()
+
+
+def _gelu_at_jax_rounding(x):
+    """jax.nn.gelu (tanh form) as the reference runs it: every op rounds
+    to x's dtype, its constants too."""
+    c = lambda v: torch.tensor(v, dtype=x.dtype)
+    inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * x * x))
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
+
+
+def _attention_at_jax_rounding(q, k, v, *, causal=True, window=0,
+                               impl="auto"):
+    """The reference's `attention_full`: fp32 scores and softmax, the
+    probabilities rounded to q's dtype before PV."""
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, T, Hkv, H // Hkv, D)
+    s = torch.einsum("bthgd,bshd->bhgts", qg.float(), k.float()) \
+        * (1.0 / math.sqrt(D))
+    qpos, kpos = torch.arange(T)[:, None], torch.arange(S)[None, :]
+    mask = torch.ones(T, S, dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgts,bshd->bthgd", p.float(), v.float())
+    return out.to(q.dtype).reshape(B, T, H, D)
+
+
+def test_hybrid_bit_identical_to_jax_op_by_op_at_its_rounding_points(
+        monkeypatch):
+    """Where recurrentgemma-9b's TOL gap comes from.  The port rounds in
+    two places where the reference does not: it keeps attention
+    probabilities in fp32 through PV (the flash kernel's contract) and
+    rounds tanh-GELU once where the reference rounds after each op.  With
+    the reference's rounding there instead, the port equals the reference
+    run op by op (jax.disable_jit) bit for bit: train logits, prefill
+    logits, three decode steps' logits and every bf16 cache leaf (the
+    fp32 RG-LRU states to 1e-6, the scan's summation order).  The rest of
+    the gap is the jitted reference's own: XLA fuses the scanned layers
+    and drops roundings there.  Measured on this test's train logits:
+    jitted vs op-by-op reference 0.0153 / rms 0.0137; the port at these
+    rounding points vs the jitted reference the same 0.0153 / 0.0137, as
+    it ships 0.0181 / 0.0141.  falcon-mamba-7b runs neither op; its one
+    ulp in one decode step is the scan's fp32 order flipping a bf16
+    rounding."""
+    arch = "recurrentgemma-9b"
+    monkeypatch.setattr(layers, "select_attention",
+                        _attention_at_jax_rounding)
+    act_fn = layers.act_fn
+    monkeypatch.setattr(layers, "act_fn", lambda name: _gelu_at_jax_rounding
+                        if name == "gelu" else act_fn(name))
+    jm, tm, jp, tp = _pair(arch, seed=4)
+    B, T = 2, 16
+    toks = _tokens(jm.cfg, B, T + 3, seed=1)
+
+    def same(got, want):
+        want = np.asarray(want)
+        if want.dtype == np.float32:
+            np.testing.assert_allclose(_np(got), want, rtol=0, atol=1e-6 *
+                                       max(float(np.abs(want).max()), 1.0))
+        else:
+            np.testing.assert_array_equal(_np(got), _np(want))
+
+    with jax.disable_jit():
+        jl, _ = jm.apply(jp, {"tokens": jnp.asarray(toks)}, mode="train")
+        tl, _ = tm.apply(tp, {"tokens": torch.as_tensor(toks)}, mode="train")
+        same(tl, jl)
+        jl, jc = jm.apply(jp, {"tokens": jnp.asarray(toks[:, :T])},
+                          mode="prefill")
+        tl, tc = tm.apply(tp, {"tokens": torch.as_tensor(toks[:, :T])},
+                          mode="prefill")
+        same(tl, jl)
+        for i in range(3):
+            b = {"tokens": toks[:, T + i:T + i + 1],
+                 "positions": np.full((B, 1), T + i, np.int32)}
+            jl, jc = jm.apply(jp, {k: jnp.asarray(v) for k, v in b.items()},
+                              mode="decode", cache=jc)
+            tl, tc = tm.apply(tp, {k: torch.as_tensor(v)
+                                   for k, v in b.items()},
+                              mode="decode", cache=tc)
+            same(tl, jl)
+            for a, t in zip(jax.tree.leaves(jc), leaves(tc)):
+                same(t, a)
+
+
+@pytest.mark.parametrize("T", [1, 2, 5, 16])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_then_decode_matches_teacher_forcing(arch, T):
+    """The port against itself, as tests/test_decode_consistency.py holds
+    the reference: prefill T tokens, decode 3 more, compare with the
+    train-mode logits at those positions, by test_torch_lm.py's measure
+    of its dense decode (SELF_TOL).  Decode rounds where train does not
+    (the SSM's conv output after silu, the attention probabilities to
+    bf16): measured scale-relative max 0.0052 / rms 0.0041 (falcon),
+    0.0112 / 0.0089 (recurrentgemma).  T = 1 and 2 are shorter than the
+    conv window (the reference's fault); without `positions`, decode reads
+    them from the cache's lengths."""
+    _, tm, _, tp = _pair(arch, seed=1)
+    B = 2
+    toks = torch.as_tensor(_tokens(tm.cfg, B, T + 3, seed=2))
+    ref, _ = tm.apply(tp, {"tokens": toks}, mode="train")
+    _, cache = tm.apply(tp, {"tokens": toks[:, :T]}, mode="prefill")
+    for i in range(3):
+        got, cache = tm.apply(tp, {"tokens": toks[:, T + i:T + i + 1]},
+                              mode="decode", cache=cache)
+        _close(got[:, 0], ref[:, T + i], SELF_TOL)
+    lens = cache["len"] if arch == "falcon-mamba-7b" \
+        else cache["super"]["rec0"]["len"]
+    assert (lens == T + 3).all()
+
+
+def test_ssm_decode_writes_cache_in_place():
+    _, tm, _, tp = _pair("falcon-mamba-7b")
+    toks = torch.as_tensor(_tokens(tm.cfg, 2, 9))
+    _, cache = tm.apply(tp, {"tokens": toks[:, :8]}, mode="prefill")
+    conv, h, lens = cache["conv"], cache["h"], cache["len"].clone()
+    before = h.clone()
+    _, out = tm.apply(tp, {"tokens": toks[:, 8:]}, mode="decode", cache=cache)
+    assert out["conv"] is conv and out["h"] is h
+    assert not torch.equal(h, before)
+    assert torch.equal(out["len"], lens + 1)
+
+
+def _solo(model, params, prompt, max_new):
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    nxt, cache = prefill(params, {"tokens": torch.as_tensor(prompt[None])})
+    out = [int(nxt[0])]
+    for pos in range(len(prompt), len(prompt) + max_new - 1):
+        nxt, cache = decode(params, {
+            "tokens": nxt[:, None],
+            "positions": torch.full((1, 1), pos, dtype=torch.int32)}, cache)
+        out.append(int(nxt[0]))
+    return out
+
+
+def _greedy_teacher_forced(model, params, prompt, max_new):
+    """Greedy continuation by re-running the whole sequence in train mode
+    each step: what prefill + decode must reproduce."""
+    seq = list(prompt)
+    for _ in range(max_new):
+        logits, _ = model.apply(params, {"tokens": torch.as_tensor(
+            np.asarray(seq, np.int32)[None])}, mode="train")
+        seq.append(int(torch.argmax(logits[0, -1].float())))
+    return seq[len(prompt):]
+
+
+def test_ssm_serve_loop_matches_solo_and_teacher_forcing():
+    """falcon-mamba smoke in a 2-slot ServeLoop with requests joining
+    mid-flight: every request's tokens equal its solo generation; the 1-
+    and 2-token prompts (shorter than the conv window) equal greedy
+    teacher forcing too."""
+    tm = build_model(get_smoke_config("falcon-mamba-7b"))
+    params = tm.init(threefry.key(0), "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, tm.cfg.vocab_size, n).astype(np.int32)
+               for n in (12, 1, 7, 2, 19)]
+    want = [_solo(tm, params, p, 6) for p in prompts]
+    for i in (1, 3):
+        assert want[i] == _greedy_teacher_forced(tm, params, prompts[i], 6)
+    loop = ServeLoop(tm, params, max_batch=2, max_len=64)
+    assert loop.cache["conv"].shape == (2, 2, 3, 128)
+    assert loop.cache["h"].shape == (2, 2, 128, 4)
+    for i, p in enumerate(prompts):
+        loop.submit(Request(rid=i, prompt=p, max_new=6))
+    done = {r.rid: r.out for r in loop.run_until_drained()}
+    assert [done[i] for i in range(len(prompts))] == want
+    assert sorted(loop.free) == [0, 1] and loop.decode_steps >= 15
+
+
+def test_hybrid_serve_loop_raises():
+    tm = build_model(get_smoke_config("recurrentgemma-9b"))
+    with pytest.raises(NotImplementedError, match="fixed-batch"):
+        ServeLoop(tm, {"embed": {"tok": torch.zeros(1)}})
+
+
+@pytest.mark.parametrize("arch,B,T", [("falcon-mamba-7b", 2, 9),
+                                      ("recurrentgemma-9b", 2, 11)])
+def test_serve_main_runs_on_cpu(arch, B, T, capsys):
+    res = serve.main(["--device", "cpu", "--arch", arch, "--batch", str(B),
+                      "--prompt-len", str(T), "--gen", "3"])
+    assert res["tokens"].shape == (B, 3)
+    zero = {"flash_attention": 0, "linrec": 0}     # CPU: the plain versions
+    assert res["launches"] == {"prefill": zero, "decode": zero}
+    assert res["peak_gb"] is None
+    out = capsys.readouterr().out
+    assert f"cache {res['model'].cfg.family} state" in out
+    assert "linrec 0" in out and "ms/step" in out
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_impl_ref_equals_auto_on_cpu(arch):
+    _, tm, _, tp = _pair(arch)
+    toks = torch.as_tensor(_tokens(tm.cfg, 2, 12))
+    a, _ = tm.apply(tp, {"tokens": toks}, mode="train")
+    b, _ = tm.apply(tp, {"tokens": toks}, mode="train", impl="ref")
+    assert torch.equal(a, b)
+
+
+def test_logits_gap_hooks_reach_the_layers():
+    """examples/logits_gap.py's readings set chip_smoke.py's logits
+    tolerances, so its hooks must reach the layers: at smoke size on the
+    CPU (the kernels are the plain versions there) the shipped path reads
+    0, a nudged rounding little, and the planted faults much more.  A
+    lost carry shows in falcon-mamba-7b's last position; the RG-LRU
+    forgets it within a few steps."""
+    gaps = {}
+    for arch, runs in (
+            ("recurrentgemma-9b", {
+                "kernels": {},
+                "nudge": {"impl": "ref", "attention": logits_gap.nudge},
+                "drop_head": {"attention": logits_gap.drop_head},
+                "half_window": {"attention": logits_gap.half_window}}),
+            ("falcon-mamba-7b", {"lost_carry": {
+                "scan": logits_gap.lost_carry}})):
+        tm = build_model(get_smoke_config(arch))
+        params = tm.init(threefry.key(0), "cpu")
+        toks = torch.as_tensor(_tokens(tm.cfg, 2, 96, seed=1))
+        plain = logits_gap.prefill_logits(tm, params, toks, impl="ref")
+        for name, kw in runs.items():
+            got = logits_gap.prefill_logits(tm, params, toks, **kw)
+            gaps[name] = float((got - plain).abs().max() / plain.abs().max())
+    assert gaps["kernels"] == 0.0
+    assert 0.0 < gaps["nudge"] < 0.05
+    assert gaps["drop_head"] > 0.1 and gaps["half_window"] > 0.1
+    assert gaps["lost_carry"] > 0.0

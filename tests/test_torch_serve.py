@@ -100,7 +100,10 @@ def test_serve_main_runs_on_cpu(argv, capsys):
     gen = int(argv[argv.index("--gen") + 1]) if "--gen" in argv else 32
     batch = int(argv[argv.index("--batch") + 1]) if "--batch" in argv else 4
     assert res["tokens"].shape == (batch, gen)
-    assert res["flash_launches"] == 0          # CPU: the plain version
+    # CPU: the plain versions, no kernel launched in prefill or decode
+    assert res["launches"]["prefill"]["flash_attention"] == 0
+    assert all(n == 0 for phase in res["launches"].values()
+               for n in phase.values())
     out = capsys.readouterr().out
     assert "[serve] prefill" in out and "ms/step" in out
 
