@@ -30,15 +30,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      local epoch and a q8 exchange through 2 fog cells, through the
      kernels and the plain version, which must give equal final params;
   7. hold flash_attention against its plain version over
-     tests/test_kernels.py's shapes, odd T (1, 77, 1,000), D = 8, 12, 16,
-     non-causal, fp32 and bf16 (3e-4 / 3e-2), and time it at
-     granite-20b's full-width prefill shape beside its bound, the plain
-     version and one scaled_dot_product_attention call (a yardstick the
-     port never calls);
+     tests/test_kernels.py's shapes, odd T (1, 77, 1,000, 4,097), D = 8,
+     12, 16, 200, 256, windows off the tile grid, non-causal, fp32 and
+     bf16 (3e-4 / 3e-2), and strided views on the mma.sync and FMA routes,
+     printing each shape's route (kernel.route: wgmma for bf16 that TMA
+     can describe, mma / fma for the rest); then time it at granite-20b's
+     and recurrentgemma-9b's full-width prefill shapes beside the bound,
+     the plain version and one scaled_dot_product_attention call (a
+     yardstick the port never calls);
   8. the LM serving path at granite-20b's full width (20.32 B params,
      bf16, drawn on the card): `python -m repro_torch.launch.serve --full
      --batch 8 --prompt-len 2048 --gen 32` through its main, which must
-     launch flash_attention once per layer (52); then a batch of 2 x 2,048
+     launch flash_attention once per layer (52), all on the wgmma route;
+     then a batch of 2 x 2,048
      prefilled through the kernel, each layer's attention held against the
      plain version on the same q/k/v (3e-2), and again through the plain
      version: last-position logits within 2e-2 scale-relative;
@@ -67,7 +71,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      reported;
   13. recurrentgemma-9b at full width (10.44 B params): `serve.py --arch
      recurrentgemma-9b --full --batch 2 --prompt-len 2048 --gen 32`, 26
-     linrec and 12 flash launches in the prefill and 26 linrec launches a
+     linrec and 12 flash launches (wgmma route) in the prefill and 26 linrec launches a
      decode step; then its 2 x 2,048 prefill's attention and scans held
      layer by layer against the plain versions, and its last-position
      logits against the plain run's: within 3.5e-2 (see LM_LOGITS_TOL);
@@ -116,8 +120,9 @@ Q8_OPS_PER_ELEMENT = {"quantize": 5, "dequantize": 1}   # abs, max, divide,
 #                                  round, clamp; multiply (fp32, no tensor core)
 EXCHANGE_P = 8                     # the exchange's leaf shapes at P islands
 # flash_attention sweep (B, T, H, Hkv, D, window, causal): test_kernels.py's
-# five shapes, odd T, the smoke configs' head dims, non-causal; bf16 takes
-# the tensor-core kernel up to D = 128 and the FMA kernel above (200, 256)
+# five shapes, odd T, the smoke configs' head dims, non-causal, then a tail
+# tile of one key, D = 256 under a window off the tile grid, granite's group
+# of 48; bf16 takes the wgmma kernel wherever D % 8 == 0 (D = 12: mma.sync)
 FA_SWEEP = [(2, 256, 4, 4, 64, 0, True), (2, 256, 4, 2, 64, 0, True),
             (2, 512, 8, 1, 128, 0, True), (2, 512, 4, 2, 64, 128, True),
             (2, 1024, 2, 2, 64, 300, True), (2, 1, 48, 1, 128, 0, True),
@@ -125,7 +130,12 @@ FA_SWEEP = [(2, 256, 4, 4, 64, 0, True), (2, 256, 4, 2, 64, 0, True),
             (2, 77, 8, 2, 8, 0, True), (2, 100, 4, 4, 12, 0, True),
             (2, 130, 4, 1, 16, 0, True), (2, 77, 4, 2, 64, 0, False),
             (1, 300, 8, 8, 128, 0, False), (1, 130, 3, 3, 200, 50, False),
-            (1, 300, 4, 1, 256, 0, True)]
+            (1, 300, 4, 1, 256, 0, True), (1, 4097, 4, 1, 128, 0, True),
+            (2, 700, 4, 1, 256, 300, True), (1, 520, 48, 1, 128, 0, True)]
+# bf16 q/k/v as views of one fused (B, T, 6, D + pad) projection, (D, pad,
+# route): a row padded by 8 keeps TMA's strides; by 1, mma.sync (D <= 128)
+# or the FMA kernel (D > 128) takes it
+FA_STRIDED = [(128, 8, "wgmma"), (64, 1, "mma"), (200, 1, "fma")]
 FA_TOL = {"float32": 3e-4, "bfloat16": 3e-2}    # tests/test_kernels.py
 LM_ARCH = "granite-20b"
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
@@ -151,6 +161,8 @@ HYBRID_ARCH, HYBRID_BATCH = "recurrentgemma-9b", 2
 LR_MAIN = {SSM_ARCH: (SSM_BATCH, LM_PROMPT, 8192 * 16),
            HYBRID_ARCH: (HYBRID_BATCH, LM_PROMPT, 4096)}
 SSM_LOOP_LENGTHS = (3, 77, 300, 1000, 2047, 513, 64, 1500)
+# recurrentgemma-9b's prefill attention (B, T, H, Hkv, D, window)
+FA_HYBRID = (HYBRID_BATCH, LM_PROMPT, 16, 1, 256, 2048)
 
 
 def check(ok: bool, msg: str):
@@ -407,10 +419,11 @@ def attention_pairs(T: int, window: int, causal: bool) -> int:
 
 
 def flash_sweep(torch):
-    """flash_attention vs its plain version over FA_SWEEP x dtype; then the
-    full-width prefill shape, timed; -> the main shape's record."""
+    """flash_attention vs its plain version over FA_SWEEP x dtype and the
+    FA_STRIDED views, each on the route kernel.route gives it; then the
+    two full-width prefill shapes, timed; -> their records, by arch."""
     from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_cuda
+        flash_attention_cuda, route
     from repro_torch.kernels.flash_attention.ref import attention_ref
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -426,45 +439,73 @@ def flash_sweep(torch):
                              v.transpose(1, 2), causal=causal,
                              window=window).transpose(1, 2)
 
+    def held(name, label, q, k, v, window, causal):
+        got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = plain(q, k, v, window, causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        check(err <= FA_TOL[name] and bool(torch.isfinite(got).all()),
+              f"flash_attention {name} {label}: max |diff| {err} > "
+              f"{FA_TOL[name]}")
+        print(f"flash_attention {name} {label} route {route(q, k, v)}: max "
+              f"|diff| {err:.3g} (tol {FA_TOL[name]})", flush=True)
+
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for B, T, H, Hkv, D, window, causal in FA_SWEEP:
             q, k, v = qkv(B, T, H, Hkv, D, dtype)
-            got = flash_attention_cuda(q, k, v, causal=causal, window=window)
-            want = plain(q, k, v, window, causal)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            check(err <= FA_TOL[name] and bool(torch.isfinite(got).all()),
-                  f"flash_attention {name} B={B} T={T} H={H} Hkv={Hkv} "
-                  f"D={D} window={window} causal={causal}: max |diff| "
-                  f"{err} > {FA_TOL[name]}")
-            print(f"flash_attention {name} B={B} T={T} H={H} Hkv={Hkv} D={D}"
-                  f" window={window} causal={causal}: max |diff| {err:.3g} "
-                  f"(tol {FA_TOL[name]})", flush=True)
-    B, T, H, Hkv, D = FA_MAIN
-    q, k, v = qkv(B, T, H, Hkv, D, torch.bfloat16)
-    got = flash_attention_cuda(q, k, v)
-    err = float((got.float() - plain(q, k, v).float()).abs().max())
-    check(err <= FA_TOL["bfloat16"], f"flash_attention full width: {err}")
-    del got
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ms = graph_ms(torch, lambda: flash_attention_cuda(q, k, v), 5)
-    plain_ms = graph_ms(torch, lambda: plain(q, k, v), 2)
-    lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    flops = 4 * D * attention_pairs(T, 0, True) * B * H
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
-    print(f"flash_attention full width B={B} T={T} H={H} Hkv={Hkv} D={D} "
-          f"bf16 causal: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-          f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}; {flops:.4g} FLOPs, {nbytes / 1e9:.3f} GB;"
-          f" {b_ms / ms:.2%} of it), max |diff| {err:.3g}", flush=True)
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
-    return rec
+            want_route = "fma" if dtype == torch.float32 else \
+                "wgmma" if D % 8 == 0 else "mma"
+            check(route(q, k, v) == want_route, f"flash_attention {name} D="
+                  f"{D}: route {route(q, k, v)}, expected {want_route}")
+            held(name, f"B={B} T={T} H={H} Hkv={Hkv} D={D} window={window} "
+                 f"causal={causal}", q, k, v, window, causal)
+    for D, pad, want_route in FA_STRIDED:
+        x = torch.randn(2, 300, 6, D + pad, generator=g, device="cuda")
+        x = (x * 0.3).to(torch.bfloat16)[..., :D]
+        q, k, v = x[:, :, :4], x[:, :, 4:5], x[:, :, 5:6]
+        check(route(q, k, v) == want_route, f"flash_attention strided D={D}"
+              f": route {route(q, k, v)}, expected {want_route}")
+        held("bfloat16", f"strided views D={D} (rows of {D + pad}) "
+             "window=100", q, k, v, 100, True)
+    recs = {}
+    for arch, (B, T, H, Hkv, D, window) in (
+            (LM_ARCH, (*FA_MAIN, 0)), (HYBRID_ARCH, FA_HYBRID)):
+        q, k, v = qkv(B, T, H, Hkv, D, torch.bfloat16)
+        check(route(q, k, v) == "wgmma", f"{arch} prefill attention route "
+              f"{route(q, k, v)}")
+        got = flash_attention_cuda(q, k, v, window=window)
+        err = float((got.float() - plain(q, k, v, window).float()).abs().max())
+        check(err <= FA_TOL["bfloat16"], f"flash_attention {arch} full "
+              f"width: {err}")
+        del got
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = graph_ms(torch, lambda: flash_attention_cuda(q, k, v,
+                                                          window=window), 5)
+        plain_ms = graph_ms(torch, lambda: plain(q, k, v, window), 2)
+        # the yardstick: is_causal=True is recurrentgemma's window of 2,048
+        # at T = 2,048 (every key j <= t also has j > t - 2,048)
+        check(window in (0, T), f"no SDPA mask for window {window}")
+        lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+        flops = 4 * D * attention_pairs(T, window, True) * B * H
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        # P kept as hi + lo bf16 doubles the P V half of the tensor work
+        split_ms, _ = bound(nbytes, flops * 3 // 2, BF16_FLOPS_PER_S)
+        recs[arch] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound_ms": b_ms,
+                      "bound_by": b_by}
+        print(f"flash_attention {arch} full width B={B} T={T} H={H} Hkv={Hkv}"
+              f" D={D} window={window} bf16 causal, route wgmma: {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+              f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{flops:.4g} FLOPs, {nbytes / 1e9:.3f} GB; {b_ms / ms:.2%} of "
+              f"it), with P split {split_ms:.4f} ms ({split_ms / ms:.2%} of "
+              f"it), max |diff| {err:.3g}", flush=True)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return recs
 
 
 def layer_counts(cfg) -> dict:
@@ -492,6 +533,8 @@ def lm_serve(torch, arch: str, batch: int):
     torch.cuda.reset_peak_memory_stats()
     for fn in serve.KERNELS.values():
         fn.launches = 0
+    routes = serve.KERNELS["flash_attention"].routes
+    routes.update(dict.fromkeys(routes, 0))
     t0 = time.perf_counter()
     res = serve.main(["--arch", arch, "--full", "--batch", str(batch),
                       "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN)])
@@ -509,6 +552,10 @@ def lm_serve(torch, arch: str, batch: int):
                 per_prefill[name] + per_step[name] * steps)
         check(got == want, f"serve {arch} --full: {name} launches (prefill,"
               f" {steps} decode steps, run) {got}, expected {want}")
+    check(routes["wgmma"] == launches["flash_attention"]
+          and sum(routes.values()) == routes["wgmma"],
+          f"serve {arch} --full: flash launches by route {routes}; every one "
+          "should take wgmma")
     toks = res["tokens"]
     check(toks.shape == (batch, LM_GEN) and toks.min() >= 0
           and toks.max() < model.cfg.vocab_size,
@@ -521,7 +568,8 @@ def lm_serve(torch, arch: str, batch: int):
           f"({batch * LM_PROMPT / pre:.0f} tok/s), decode "
           f"{dec * 1e3 / steps:.2f} ms/step ({batch * steps / dec:.0f} "
           f"tok/s), launches {launches} ({per_prefill} in the prefill, "
-          f"{per_step} per decode step), peak memory {peak:.2f} GB, "
+          f"{per_step} per decode step; flash by route {routes}), peak memory"
+          f" {peak:.2f} GB, "
           f"{wall:.1f} s wall", flush=True)
     return res, launches, peak
 
@@ -606,6 +654,8 @@ def lm_serve_loop(torch, model, params, lengths):
                for n in lengths]
     for fn in serve.KERNELS.values():
         fn.launches = 0
+    routes = serve.KERNELS["flash_attention"].routes
+    routes.update(dict.fromkeys(routes, 0))
     t0 = time.perf_counter()
     loop = ServeLoop(model, params, max_batch=LOOP_SLOTS,
                      max_len=LOOP_MAX_LEN)
@@ -625,6 +675,8 @@ def lm_serve_loop(torch, model, params, lengths):
     check(launches == want, f"ServeLoop {arch}: launches {launches} for "
           f"{len(prompts)} prefills and {loop.decode_steps} decode steps, "
           f"expected {want}")
+    check(routes["wgmma"] == launches["flash_attention"],
+          f"ServeLoop {arch}: flash launches by route {routes}")
     check(sorted(loop.free) == list(range(LOOP_SLOTS)), "slots not freed")
     print(f"ServeLoop {arch} full width, {LOOP_SLOTS} slots x "
           f"{LOOP_MAX_LEN}: {len(prompts)} requests (prompts {lengths}) x "
@@ -912,7 +964,8 @@ def main() -> int:
           f"params max |diff| {island_gap}", flush=True)
 
     # 7. flash_attention vs plain version (launches here are not the path's)
-    fa_main = flash_sweep(torch)
+    fa_recs = flash_sweep(torch)
+    fa_main = fa_recs[LM_ARCH]
 
     # 8. the LM serving path at full width, counted from zero
     res, lm_launches, lm_peak = lm_serve(torch, LM_ARCH, LM_BATCH)

@@ -1,9 +1,19 @@
 """ctypes binding of the CUDA flash-attention kernel (csrc/flash_attention.cu).
 
 `flash_attention_cuda(q, k, v, causal=, window=)` launches on PyTorch's
-current stream and counts its launches in `.launches`, so a run can show
-that its prefills went through the kernel.  The library is built from the
-sources at first call (kernels/build.py), never at import.
+current stream and counts its launches in `.launches`, and per route in
+`.routes`, so a run can show that its prefills went through the kernel it
+expects.  `route(q, k, v)` picks the kernel from shapes, dtype, strides and
+alignment alone:
+
+  "wgmma"  bf16 that TMA can describe (D and every batch, time and head
+           stride a multiple of 8 elements and non-zero, q/k/v 16-byte
+           aligned): flash_fwd_wgmma, TMA and wgmma, any D <= 256;
+  "mma"    other bf16 with D <= 128: flash_fwd_mma (mma.sync);
+  "fma"    fp32, and other bf16 with D > 128: flash_fwd_fma (fp32 FMAs).
+
+The library is built from the sources at first call (kernels/build.py),
+never at import.
 """
 from __future__ import annotations
 
@@ -17,6 +27,7 @@ from repro_torch.kernels.build import load_library
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("fma", "mma", "wgmma")   # the C entry point's route codes 0, 1, 2
 MAX_HEAD_DIM = 256
 _LIB: list[ctypes.CDLL] = []   # loaded once per process
 
@@ -27,7 +38,7 @@ def library() -> ctypes.CDLL:
         fn = lib.flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 14
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_int, ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -69,6 +80,21 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
                              f"be contiguous (strides {t.stride()})")
 
 
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that takes these (checked) inputs: "wgmma", "mma" or
+    "fma".  Reads only dtype, shape, strides and data pointers, so meta and
+    CPU tensors answer as CUDA tensors of that layout would."""
+    if q.dtype != torch.bfloat16:
+        return "fma"
+    D = q.shape[3]
+    tma = D % 8 == 0 and all(
+        s > 0 and s % 8 == 0 and t.data_ptr() % 16 == 0
+        for t in (q, k, v) for s in t.stride()[:3])
+    if tma:
+        return "wgmma"
+    return "mma" if D <= 128 else "fma"
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
@@ -88,19 +114,23 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B == 0 or T == 0 or H == 0:
         return out
     lib = library()
+    name = route(q, k, v)
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, T, H, k.shape[2], D, *strides, int(bool(causal)), int(window),
-            1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype], stream)
+            1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype], ROUTES.index(name),
+            stream)
     if err != 0:
         raise RuntimeError(
-            f"flash_attention launch failed: CUDA error {err} "
+            f"flash_attention launch ({name}) failed: CUDA error {err} "
             f"({lib.flash_attention_error_string(err).decode()})")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.routes[name] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.routes = dict.fromkeys(ROUTES, 0)

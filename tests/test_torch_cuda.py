@@ -199,7 +199,13 @@ FA_SHAPES = [  # (B, T, H, Hkv, D, window, causal)
     (2, 1024, 2, 2, 64, 300, True), (1, 1, 4, 1, 8, 0, True),
     (2, 77, 4, 2, 12, 0, True), (1, 1000, 8, 2, 16, 0, True),
     (2, 77, 4, 4, 16, 0, False), (1, 130, 48, 1, 128, 0, True),
-    (1, 300, 4, 1, 256, 0, True), (1, 130, 3, 3, 200, 50, False)]
+    (1, 300, 4, 1, 256, 0, True), (1, 130, 3, 3, 200, 50, False),
+    # bf16 takes the wgmma route on all below: a tail tile of one key at
+    # D = 128, D = 256 under a window that is no multiple of a tile, D =
+    # 200 padded to 256, GQA groups of 1, 2 and 48
+    (1, 4097, 4, 1, 128, 0, True), (2, 700, 4, 1, 256, 300, True),
+    (1, 300, 4, 2, 200, 0, True), (2, 333, 4, 4, 128, 0, True),
+    (1, 520, 48, 1, 128, 0, True), (1, 200, 4, 2, 256, 0, False)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),
@@ -216,11 +222,16 @@ def test_flash_attention_kernel_matches_plain_version(cuda, dtype, tol):
              ).to(dtype)
         v = torch.randn(B, T, Hkv, D, generator=g, device=cuda).to(dtype)
         before = fa.flash_attention_cuda.launches
+        route = fa.route(q, k, v)
+        on_route = fa.flash_attention_cuda.routes[route]
         got = flash_attention(q, k, v, causal=causal, window=window)
         want = flash_attention(q, k, v, causal=causal, window=window,
                                impl="ref")
         torch.cuda.synchronize()
         assert fa.flash_attention_cuda.launches == before + 1
+        assert fa.flash_attention_cuda.routes[route] == on_route + 1
+        assert route == ("fma" if dtype == torch.float32 else
+                         "wgmma" if D % 8 == 0 else "mma")
         assert got.dtype == dtype and got.is_contiguous()
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
@@ -242,6 +253,52 @@ def test_flash_attention_kernel_takes_strided_views(cuda):
     torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
 
 
+@pytest.mark.parametrize("D,route", [(64, "wgmma"), (128, "wgmma"),
+                                     (256, "wgmma"), (200, "wgmma"),
+                                     (12, "mma"), (200, "fma")])
+def test_flash_attention_routes_on_strided_views(cuda, D, route):
+    """bf16 q/k/v as views of one fused projection, read through their
+    strides on the route their layout gets: TMA takes strides that are
+    multiples of 8 elements (a row padded to D + 8), mma.sync and the FMA
+    kernel the others (a row padded by one element)."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator(device=cuda).manual_seed(2)
+    pad = 1 if route != "wgmma" else 8
+    qkv = torch.randn(2, 300, 6, D + pad, generator=g, device=cuda)
+    qkv = (qkv * 0.3).to(torch.bfloat16)[..., :D]
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:5], qkv[:, :, 5:6]
+    assert fa.route(q, k, v) == route
+    before = fa.flash_attention_cuda.routes[route]
+    got = fa.flash_attention_cuda(q, k, v, window=100)
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), window=100).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.routes[route] == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+
+
+def test_flash_attention_kernel_refuses_a_route_it_cannot_take(cuda):
+    """The C entry point refuses wgmma on a layout TMA cannot describe and
+    mma above D = 128 (cudaErrorInvalidValue), rather than run another
+    kernel."""
+    import math
+    from repro_torch.kernels.flash_attention import kernel as fa
+    lib = fa.library()
+    q = torch.zeros(1, 16, 2, 12, device=cuda, dtype=torch.bfloat16)
+    wide = torch.zeros(1, 16, 2, 256, device=cuda, dtype=torch.bfloat16)
+    out = torch.empty_like(wide)
+    stream = torch.cuda.current_stream().cuda_stream
+    for t, name in ((q, "wgmma"), (wide, "mma"), (wide.float(), "wgmma")):
+        err = lib.flash_attention_fwd(
+            t.data_ptr(), t.data_ptr(), t.data_ptr(), out.data_ptr(), 1, 16,
+            2, 2, t.shape[3], *(t.stride()[:3] * 3), 1, 0,
+            1.0 / math.sqrt(t.shape[3]), int(t.dtype == torch.bfloat16),
+            fa.ROUTES.index(name), stream)
+        assert err != 0, (tuple(t.shape), t.dtype, name)
+
+
 def test_flash_attention_kernel_refuses_cross_attention(cuda):
     from repro_torch.kernels.flash_attention import kernel as fa
     q = torch.zeros(1, 8, 2, 16, device=cuda)
@@ -252,23 +309,29 @@ def test_flash_attention_kernel_refuses_cross_attention(cuda):
     assert fa.flash_attention_cuda.launches == before
 
 
-@pytest.mark.parametrize("arch", ["granite-20b", "chatglm3-6b"])
+@pytest.mark.parametrize("arch", ["granite-20b", "chatglm3-6b",
+                                  "recurrentgemma-9b"])
 def test_one_flash_launch_per_layer_per_prefill(cuda, arch):
-    """Prefill and train launch the kernel once per layer; decode never.
-    The logits agree with the plain version's run."""
+    """Prefill and train launch the kernel once per attention layer, all on
+    the wgmma route (head dims 16, 8, 16); decode never.  The logits agree
+    with the plain version's run."""
     from repro_torch import threefry
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.models import build_model
+    from repro_torch.models.rglru import hybrid_counts
     model = build_model(get_smoke_config(arch))
     params = model.init(threefry.key(0), cuda)
     toks = torch.randint(0, model.cfg.vocab_size, (2, 37), device=cuda,
                          dtype=torch.int32)
-    L = model.cfg.num_layers
+    L = hybrid_counts(model.cfg)[0] if model.cfg.family == "hybrid" \
+        else model.cfg.num_layers
     before = fa.flash_attention_cuda.launches
+    on_wgmma = fa.flash_attention_cuda.routes["wgmma"]
     with torch.no_grad():
         logits, cache = model.apply(params, {"tokens": toks}, mode="prefill")
         assert fa.flash_attention_cuda.launches == before + L
+        assert fa.flash_attention_cuda.routes["wgmma"] == on_wgmma + L
         plain, _ = model.apply(params, {"tokens": toks}, mode="prefill",
                                impl="ref")
         assert fa.flash_attention_cuda.launches == before + L

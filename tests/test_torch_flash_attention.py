@@ -138,3 +138,98 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     tkernel.check_inputs(q.transpose(1, 2).contiguous().transpose(1, 2),
                          k, k)     # any batch/time/head strides
     assert tkernel.flash_attention_cuda.launches == before
+
+
+def _meta(B, T, H, Hkv, D, dtype=torch.bfloat16):
+    meta = {"device": "meta", "dtype": dtype}
+    return (torch.empty(B, T, H, D, **meta), torch.empty(B, T, Hkv, D, **meta),
+            torch.empty(B, T, Hkv, D, **meta))
+
+
+@pytest.mark.parametrize("arch,B", [("granite-20b", 8),
+                                    ("recurrentgemma-9b", 2)])
+def test_route_full_width_prefills_take_wgmma(arch, B):
+    """Both models' full-width prefill attention (bf16, head dims 128 and
+    256) is TMA-describable: flash_fwd_wgmma."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    qkv = _meta(B, 2048, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    assert tkernel.route(*qkv) == "wgmma"
+
+
+def test_route_smoke_configs():
+    """Every smoke config with attention: bf16 heads whose D is a multiple
+    of 8 take wgmma; qwen1.5-4b's D = 12 takes mma."""
+    from repro_torch.configs import get_smoke_config, list_archs
+    seen = {}
+    for arch in list_archs():
+        cfg = get_smoke_config(arch)
+        if cfg.num_heads == 0:
+            continue
+        qkv = _meta(2, 37, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        seen[arch] = (cfg.head_dim, tkernel.route(*qkv))
+    assert seen["qwen1.5-4b"] == (12, "mma")
+    for arch in ("granite-20b", "chatglm3-6b", "minitron-8b",
+                 "recurrentgemma-9b"):
+        assert seen[arch][1] == "wgmma", (arch, seen[arch])
+    for D, name in seen.values():
+        assert name == ("wgmma" if D % 8 == 0 else "mma")
+
+
+def test_route_other_layouts():
+    """What TMA cannot describe keeps the older kernels: D not a multiple
+    of 8 (mma up to 128), an odd head stride at D = 200 (fma), a base off
+    16 bytes, a zero stride; fp32 always takes fma."""
+    assert tkernel.route(*_meta(1, 9, 4, 2, 12)) == "mma"
+    assert tkernel.route(*_meta(1, 9, 4, 2, 200)) == "wgmma"
+    wide = torch.empty(1, 9, 4, 201, device="meta", dtype=torch.bfloat16)
+    q = wide[..., :200]
+    assert q.stride(2) == 201
+    assert tkernel.route(q, q[:, :, :2], q[:, :, :2]) == "fma"
+    off = torch.empty(1, 9, 4, 72, device="meta", dtype=torch.bfloat16)
+    q = off[..., 4:68]                     # 8 bytes past a 16-byte boundary
+    assert tkernel.route(q, q[:, :, :1], q[:, :, :1]) == "mma"
+    q = off[..., 8:72]                     # 16 bytes on: aligned
+    assert tkernel.route(q, q[:, :, :1], q[:, :, :1]) == "wgmma"
+    q, k, v = _meta(1, 9, 4, 1, 64)
+    assert tkernel.route(q, k.expand(1, 9, 1, 64).as_strided(
+        k.shape, (576, 0, 64, 1)), v) == "mma"
+    assert tkernel.route(*_meta(8, 2048, 48, 1, 128, torch.float32)) == "fma"
+    assert tkernel.route(*_meta(1, 9, 4, 1, 256, torch.float32)) == "fma"
+    # a strided view as a fused projection leaves it: TMA reads it
+    qkv = torch.empty(2, 96, 6, 64, device="meta", dtype=torch.bfloat16)
+    assert tkernel.route(qkv[:, :, :4], qkv[:, :, 4:5],
+                         qkv[:, :, 5:6]) == "wgmma"
+
+
+def test_kernel_resources_reads_ptxas_report(monkeypatch, tmp_path):
+    """examples/kernel_resources.py turns ptxas's -v lines into one record
+    per entry function (nvcc itself runs only where the toolkit is)."""
+    import subprocess
+    from types import SimpleNamespace
+    from repro_torch.examples import kernel_resources as kr
+    ptxas = "\n".join([
+        "ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z3fooPf",
+        "    208 bytes stack frame, 416 bytes spill stores, 400 bytes "
+        "spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 208 bytes "
+        "cumulative stack size",
+        "ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z3barv",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 32 registers, 4096 bytes smem"])
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        return SimpleNamespace(returncode=0, stdout="", stderr=ptxas)
+
+    monkeypatch.setattr(kr, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(kr, "demangle", lambda names: names)
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    recs = kr.report("flash_attention", tkernel.SOURCES, tmp_path)
+    assert "-Xptxas" in calls[0] and str(tkernel.SOURCES[0]) in calls[0]
+    assert [(r["entry"], r["registers"], r["spill_stores"], r["spill_loads"],
+             r["stack"], r["smem"]) for r in recs] == [
+        ("_Z3fooPf", 168, 416, 400, 208, 0), ("_Z3barv", 32, 0, 0, 0, 4096)]
