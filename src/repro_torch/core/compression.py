@@ -26,7 +26,7 @@ import math
 import torch
 
 from repro_torch.kernels.quant8 import ops as q8ops
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, tree_map, unflatten_like
 
 MODES = ("q8", "topk", "q8_topk")
 
@@ -110,19 +110,23 @@ def compress_tree(tree, *, mode: str = "q8", block: int = 256,
     """
     if mode not in MODES:
         raise ValueError(f"unknown compression mode '{mode}' (use {MODES})")
-
-    def one(leaf):
-        meta = {"shape": tuple(leaf.shape), "dtype": _dtype_name(leaf.dtype)}
-        if mode == "q8":
-            q, s = quantize_blockwise(leaf, block=block, impl=impl)
-            return {"q": q, "scale": s, **meta}
-        idx, val = sparsify_topk(leaf, k_frac=k_frac)
-        if mode == "topk":
-            return {"idx": idx, "val": val, **meta}
-        q, s = quantize_blockwise(val, block=block, impl=impl)
-        return {"idx": idx, "q": q, "scale": s, "k": int(idx.shape[0]),
-                **meta}
-    return tree_map(one, tree)
+    ls = leaves(tree)
+    metas = [{"shape": tuple(l.shape), "dtype": _dtype_name(l.dtype)}
+             for l in ls]
+    if mode == "q8":         # every leaf in one grouped quantise
+        out = [{"q": q, "scale": s, **meta} for (q, s), meta in
+               zip(q8ops.quantize_grouped(ls, block=block, impl=impl), metas)]
+        return unflatten_like(tree, out)
+    sparse = [sparsify_topk(l, k_frac=k_frac) for l in ls]
+    if mode == "topk":
+        out = [{"idx": idx, "val": val, **meta}
+               for (idx, val), meta in zip(sparse, metas)]
+        return unflatten_like(tree, out)
+    vals = q8ops.quantize_grouped([val for _, val in sparse], block=block,
+                                  impl=impl)
+    out = [{"idx": idx, "q": q, "scale": s, "k": int(idx.shape[0]), **meta}
+           for (idx, _), (q, s), meta in zip(sparse, vals, metas)]
+    return unflatten_like(tree, out)
 
 
 def _is_cleaf(x):
@@ -137,20 +141,23 @@ def _map_cleaves(fn, ctree):
 
 
 def decompress_tree(ctree, *, impl: str = "auto"):
+    ds = []
+    _map_cleaves(ds.append, ctree)
+    quantized = [d for d in ds if "q" in d]   # one grouped dequantise
+    vals = iter(q8ops.dequantize_grouped(
+        [d["q"] for d in quantized], [d["scale"] for d in quantized],
+        [(d["k"],) if "idx" in d else d["shape"] for d in quantized],
+        impl=impl))
+
     def one(d):
         n = math.prod(d["shape"])
         if "idx" in d:
-            if "val" in d:                       # topk
-                val = d["val"]
-            else:                                # q8_topk
-                val = dequantize_blockwise(d["q"], d["scale"], (d["k"],),
-                                           impl=impl)
+            val = d["val"] if "val" in d else next(vals)   # topk, q8_topk
             x = torch.zeros(n, dtype=torch.float32, device=val.device)
             x[d["idx"].long()] = val
             x = x.reshape(d["shape"])
         else:                                    # q8
-            x = dequantize_blockwise(d["q"], d["scale"], d["shape"],
-                                     impl=impl)
+            x = next(vals)
         return x.to(getattr(torch, d["dtype"]))
     return _map_cleaves(one, ctree)
 

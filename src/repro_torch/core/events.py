@@ -65,6 +65,11 @@ class SimResult:
     def best_acc(self) -> float:
         return max((r.acc for r in self.records), default=0.0)
 
+    def as_arrays(self):
+        t = np.array([r.time for r in self.records])
+        a = np.array([r.acc for r in self.records])
+        return t, a
+
 
 class FLSimulation:
     def __init__(self, server: AggregationServer, workers: dict[int, SimWorker],
@@ -72,7 +77,7 @@ class FLSimulation:
                  model_bytes: int = 0, round_overhead: float = 0.5,
                  idle_tick: float = 0.2, time_noise: float = 0.05,
                  seed: int = 0, cohort: bool = True, faults=None,
-                 ckpt=None):
+                 ckpt=None, ckpt_every: int = 1):
         if ckpt is not None:
             raise NotImplementedError("ckpt= needs checkpoint/manager, not "
                                       "ported yet")
@@ -92,6 +97,7 @@ class FLSimulation:
         # (client.LocalTrainer.train_cohort) instead of a Python loop.
         self.cohort = cohort
         self.faults = faults          # Optional faults.FaultPlan
+        self.ckpt_every = max(int(ckpt_every), 1)
         trainer = next(iter(workers.values())).trainer
         self._eval = lambda p: trainer.evaluate(p, self.test_images,
                                                 self.test_labels)

@@ -24,7 +24,7 @@ import torch
 from repro_torch.core import aggregation, compression
 from repro_torch.core.client import draw_orders
 from repro_torch.kernels.quant8 import ops as q8ops
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, tree_map, unflatten_like
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,28 +90,28 @@ def fl_aggregate_compressed(stacked_params, base_params, mixing, *,
     all FLight mixes satisfy.  The top-k stage is the threshold-mask form
     (compression.topk_mask), per island.
 
-    Quantise and dequantise run through kernels/quant8: the CUDA kernels
-    for tensors on the card (one launch each per leaf), their plain
-    version on the CPU or with impl="ref"."""
+    Quantise and dequantise run through kernels/quant8, each as ONE
+    grouped call over all leaves (the reference computes the whole tree in
+    one jitted step): on the card one launch each per exchange hop, on the
+    CPU or with impl="ref" their plain version."""
     if mode == "none":
         return fl_aggregate(stacked_params, mixing)
     if mode not in compression.MODES:
         raise ValueError(f"unknown exchange compression mode '{mode}'")
-
-    def mix(leaf, b):
-        delta = leaf.float() - b.float()
-        if mode in ("topk", "q8_topk"):
-            # per-island top-k over the leaf (batch dim = island axis)
-            mask = compression.topk_mask(delta, k_frac=k_frac, batch_dims=1)
-            delta = torch.where(mask, delta, 0.0)
-        if mode in ("q8", "q8_topk"):
-            q, scale = q8ops.quantize_rowwise(delta, impl=impl)
-            delta = q8ops.dequantize_rowwise(q, scale, impl=impl)
-        m = torch.as_tensor(mixing, device=leaf.device).float()
-        mixed = torch.tensordot(m, delta, dims=1)
-        return (b.float() + mixed).to(leaf.dtype)
-
-    return tree_map(mix, stacked_params, base_params)
+    xs, bs = leaves(stacked_params), leaves(base_params)
+    deltas = [x.float() - b.float() for x, b in zip(xs, bs)]
+    if mode in ("topk", "q8_topk"):
+        # per-island top-k over the leaf (batch dim = island axis)
+        deltas = [torch.where(compression.topk_mask(d, k_frac=k_frac,
+                                                    batch_dims=1), d, 0.0)
+                  for d in deltas]
+    if mode in ("q8", "q8_topk"):
+        qs, ss = zip(*q8ops.quantize_rowwise_grouped(deltas, impl=impl))
+        deltas = q8ops.dequantize_rowwise_grouped(qs, ss, impl=impl)
+    m = torch.as_tensor(mixing, device=xs[0].device).float()
+    return unflatten_like(stacked_params, [
+        (b.float() + torch.tensordot(m, d, dims=1)).to(x.dtype)
+        for x, b, d in zip(xs, bs, deltas)])
 
 
 def fl_aggregate_robust(stacked_params, method: str, *, base_params=None,

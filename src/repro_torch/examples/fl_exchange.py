@@ -11,8 +11,8 @@ modes f32, q8, topk and q8_topk -- flat, then edge -> fog -> cloud through
 time per exchange (CUDA events on the card), and it checks the benchmark's
 invariants: q8 at least 3.5x smaller than f32, q8_topk smaller than q8,
 and the kernel exchange within 1e-2 of the plain one.  On the card every
-q8 exchange quantises and dequantises each leaf through the quant8
-kernels.
+q8 exchange hop quantises and dequantises all its leaves in one grouped
+launch of each quant8 kernel.
 
 `island_rounds` runs the paper's own model the same way: islands of
 flight-cnn-mnist train a local epoch each round (`cohort_train`) and

@@ -9,78 +9,152 @@ core.compression:
   lane pad: zero padding never changes a row's absmax, so the kernel takes
   any C.
 
+Each has a grouped form over a list of leaves (`quantize_grouped`,
+`quantize_rowwise_grouped`, `quantize_rows_grouped` and their inverses):
+one kernel launch for the whole list (one per input dtype), so an exchange
+or a K/V pair pays one launch, not one per leaf.  The single-tensor functions are a group of one.
+
 `impl="auto"` launches the CUDA kernels for CUDA tensors and runs the plain
 version (ref.py) for CPU tensors; `impl="ref"` forces the plain version.
 """
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
 import torch
 
-from repro_torch.kernels.quant8.kernel import (dequantize_rows_cuda,
-                                               quantize_rows_cuda)
-from repro_torch.kernels.quant8.ref import (dequantize_rows_ref,
-                                            quantize_rows_ref)
+from repro_torch.kernels.quant8.kernel import (dequantize_grouped_cuda,
+                                               quantize_grouped_cuda)
+from repro_torch.kernels.quant8.ref import (dequantize_rows_grouped_ref,
+                                            quantize_rows_grouped_ref)
 
 BLOCK = 256
 IMPLS = ("auto", "ref")
 
 
-def _plain(t: torch.Tensor, impl: str) -> bool:
+def _plain(ts: Sequence[torch.Tensor], impl: str) -> bool:
+    """The plain version for impl="ref" or when every tensor lies on the
+    CPU; a list holding a CUDA tensor goes to the kernel (which raises on
+    a mixed list)."""
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r}; have {IMPLS}")
-    return impl == "ref" or t.device.type == "cpu"
+    return impl == "ref" or all(t.device.type == "cpu" for t in ts)
+
+
+def quantize_rows_grouped(xs: Sequence[torch.Tensor], *, impl: str = "auto"):
+    """Leaves x_i (R_i, C_i) float -> [(q_i int8 (R_i, C_i), fp32 scales
+    (R_i, 1))]; one launch per input dtype (fp32, bf16; others go as
+    fp32)."""
+    xs = list(xs)
+    if _plain(xs, impl):
+        return quantize_rows_grouped_ref(xs)
+    xs = [(x if x.dtype in (torch.float32, torch.bfloat16) else x.float())
+          .contiguous() for x in xs]
+    out = [None] * len(xs)
+    by_dtype: dict[torch.dtype, list[int]] = {}
+    for i, x in enumerate(xs):
+        by_dtype.setdefault(x.dtype, []).append(i)
+    for idx in by_dtype.values():
+        for i, r in zip(idx, quantize_grouped_cuda([xs[i] for i in idx])):
+            out[i] = r
+    return out
+
+
+def dequantize_rows_grouped(qs: Sequence[torch.Tensor],
+                            ss: Sequence[torch.Tensor], *,
+                            out_dtype=torch.float32, impl: str = "auto"):
+    """Leaves q_i (R_i, C_i) int8, s_i (R_i, 1) fp32 -> [(R_i, C_i) in
+    out_dtype], one launch."""
+    qs, ss = list(qs), list(ss)
+    if _plain(qs + ss, impl):
+        return dequantize_rows_grouped_ref(qs, ss, out_dtype)
+    return dequantize_grouped_cuda([q.contiguous() for q in qs],
+                                   [s.contiguous() for s in ss], out_dtype)
 
 
 def quantize_rows(x2: torch.Tensor, *, impl: str = "auto"):
     """x2 (R, C) float -> (q int8 (R, C), fp32 scales (R, 1))."""
-    if _plain(x2, impl):
-        return quantize_rows_ref(x2)
-    if x2.dtype not in (torch.float32, torch.bfloat16):
-        x2 = x2.float()
-    return quantize_rows_cuda(x2.contiguous())
+    return quantize_rows_grouped([x2], impl=impl)[0]
 
 
 def dequantize_rows(q2: torch.Tensor, scale2: torch.Tensor, *,
                     out_dtype=torch.float32, impl: str = "auto"):
     """q2 (R, C) int8, scale2 (R, 1) fp32 -> (R, C) in out_dtype."""
-    if _plain(q2, impl):
-        return dequantize_rows_ref(q2, scale2, out_dtype)
-    return dequantize_rows_cuda(q2.contiguous(), scale2.contiguous(),
-                                out_dtype)
+    return dequantize_rows_grouped([q2], [scale2], out_dtype=out_dtype,
+                                   impl=impl)[0]
+
+
+def quantize_grouped(xs: Sequence[torch.Tensor], *, block: int = BLOCK,
+                     impl: str = "auto"):
+    """Leaves of any shape -> [(q int8 (nblocks_i, block), fp32 scales
+    (nblocks_i,))]: each flattened and zero-padded to a block multiple; one
+    launch for the list."""
+    def blocks(x):
+        flat = x.reshape(-1)
+        pad = (-flat.shape[0]) % block
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        return flat.reshape(-1, block)
+    return [(q, s[:, 0]) for q, s in
+            quantize_rows_grouped([blocks(x) for x in xs], impl=impl)]
+
+
+def dequantize_grouped(qs: Sequence[torch.Tensor],
+                       scales: Sequence[torch.Tensor], shapes, *,
+                       out_dtype=torch.float32, impl: str = "auto"):
+    """Inverse of `quantize_grouped`: per leaf the first prod(shape)
+    values, reshaped; one launch."""
+    outs = dequantize_rows_grouped(qs, [s.reshape(-1, 1) for s in scales],
+                                   out_dtype=out_dtype, impl=impl)
+    return [o.reshape(-1)[:math.prod(shape)].reshape(shape)
+            for o, shape in zip(outs, shapes)]
 
 
 def quantize(x: torch.Tensor, *, block: int = BLOCK, impl: str = "auto"):
     """x any shape -> (q int8 (nblocks, block), fp32 scales (nblocks,))."""
-    flat = x.reshape(-1)
-    pad = (-flat.shape[0]) % block
-    if pad:
-        flat = torch.cat([flat, flat.new_zeros(pad)])
-    q, s = quantize_rows(flat.reshape(-1, block), impl=impl)
-    return q, s[:, 0]
+    return quantize_grouped([x], block=block, impl=impl)[0]
 
 
 def dequantize(q: torch.Tensor, scales: torch.Tensor, shape, *,
                out_dtype=torch.float32, impl: str = "auto"):
     """Inverse of `quantize`: the first prod(shape) values, reshaped."""
-    flat = dequantize_rows(q, scales.reshape(-1, 1), out_dtype=out_dtype,
-                           impl=impl).reshape(-1)
-    return flat[:math.prod(shape)].reshape(shape)
+    return dequantize_grouped([q], [scales], [shape], out_dtype=out_dtype,
+                              impl=impl)[0]
+
+
+def quantize_rowwise_grouped(xs: Sequence[torch.Tensor], *,
+                             impl: str = "auto"):
+    """Leaves x_i (..., C_i) -> [(q_i int8 SAME shape, fp32 scales
+    (..., 1))]; each leaf's leading dims collapse to kernel rows, and the
+    whole list is one launch."""
+    xs = list(xs)
+    pairs = quantize_rows_grouped([x.reshape(-1, x.shape[-1]) for x in xs],
+                                  impl=impl)
+    return [(q.reshape(x.shape), s.reshape(x.shape[:-1] + (1,)))
+            for x, (q, s) in zip(xs, pairs)]
+
+
+def dequantize_rowwise_grouped(qs: Sequence[torch.Tensor],
+                               ss: Sequence[torch.Tensor], *,
+                               out_dtype=torch.float32, impl: str = "auto"):
+    """Inverse of quantize_rowwise_grouped: q_i (..., C_i) int8, s_i
+    (..., 1); one launch."""
+    qs = list(qs)
+    outs = dequantize_rows_grouped(
+        [q.reshape(-1, q.shape[-1]) for q in qs],
+        [s.reshape(-1, 1) for s in ss], out_dtype=out_dtype, impl=impl)
+    return [o.reshape(q.shape) for q, o in zip(qs, outs)]
 
 
 def quantize_rowwise(x: torch.Tensor, *, impl: str = "auto"):
     """x (..., C) -> (q int8 SAME shape, fp32 scales (..., 1)); the leading
     dims collapse to kernel rows."""
-    C = x.shape[-1]
-    q, s = quantize_rows(x.reshape(-1, C), impl=impl)
-    return q.reshape(x.shape), s.reshape(x.shape[:-1] + (1,))
+    return quantize_rowwise_grouped([x], impl=impl)[0]
 
 
 def dequantize_rowwise(q: torch.Tensor, scale: torch.Tensor, *,
                        out_dtype=torch.float32, impl: str = "auto"):
     """Inverse of quantize_rowwise: q (..., C) int8, scale (..., 1)."""
-    C = q.shape[-1]
-    out = dequantize_rows(q.reshape(-1, C), scale.reshape(-1, 1),
-                          out_dtype=out_dtype, impl=impl)
-    return out.reshape(q.shape)
+    return dequantize_rowwise_grouped([q], [scale], out_dtype=out_dtype,
+                                      impl=impl)[0]

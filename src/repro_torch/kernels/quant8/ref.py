@@ -34,3 +34,16 @@ def dequantize_rows_ref(q: torch.Tensor, scale: torch.Tensor,
                         out_dtype=torch.float32) -> torch.Tensor:
     """q (R, C) int8, scale (R, 1) fp32 -> q * scale in out_dtype."""
     return (q.float() * scale).to(out_dtype)
+
+
+def quantize_rows_grouped_ref(xs) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """The grouped kernel's plain version: quantize_rows_ref leaf by leaf."""
+    return [quantize_rows_ref(x) for x in xs]
+
+
+def dequantize_rows_grouped_ref(qs, ss, out_dtype=torch.float32
+                                ) -> list[torch.Tensor]:
+    """The grouped kernel's plain version: dequantize_rows_ref leaf by
+    leaf."""
+    return [dequantize_rows_ref(q, s, out_dtype)
+            for q, s in zip(qs, ss, strict=True)]

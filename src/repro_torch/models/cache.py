@@ -126,11 +126,21 @@ def dequantize_kv(q, scale, out_dtype=torch.bfloat16, *, impl: str = "auto"):
     return ops.dequantize_rowwise(q, scale, out_dtype=out_dtype, impl=impl)
 
 
+def quantize_kv_pair(kk, vv, *, impl: str = "auto"):
+    """quantize_kv of K and V in one grouped call (one kernel launch):
+    -> ((kq, ks), (vq, vs))."""
+    from repro_torch.kernels.quant8 import ops
+    return tuple(ops.quantize_rowwise_grouped([kk, vv], impl=impl))
+
+
 def read_kv(cache, *, impl: str = "auto"):
-    """Cache leaves -> (k, v) bf16 views (dequantised when int8)."""
+    """Cache leaves -> (k, v) bf16 views (dequantised when int8, K and V
+    in one grouped call)."""
     if "k_scale" in cache:
-        return (dequantize_kv(cache["k"], cache["k_scale"], impl=impl),
-                dequantize_kv(cache["v"], cache["v_scale"], impl=impl))
+        from repro_torch.kernels.quant8 import ops
+        return tuple(ops.dequantize_rowwise_grouped(
+            [cache["k"], cache["v"]], [cache["k_scale"], cache["v_scale"]],
+            out_dtype=torch.bfloat16, impl=impl))
     return cache["k"], cache["v"]
 
 
@@ -163,8 +173,7 @@ def pack_prefill_cache(cfg, kk, vv, *, window: int,
     cache = {"len": torch.full((B,), T, dtype=torch.int32,
                                device=kk.device)}
     if spec.quantized:
-        kq, ks = quantize_kv(kk, impl=impl)
-        vq, vs = quantize_kv(vv, impl=impl)
+        (kq, ks), (vq, vs) = quantize_kv_pair(kk, vv, impl=impl)
         cache.update(k=_pad_seq(kq, keep), v=_pad_seq(vq, keep),
                      k_scale=_pad_seq(ks, keep), v_scale=_pad_seq(vs, keep))
     else:
@@ -192,8 +201,7 @@ def write_kv(cache, kk, vv, slots, *, impl: str = "auto"):
     which one device does not have."""
     out = dict(cache)
     if "k_scale" in cache:
-        kq, ks = quantize_kv(kk, impl=impl)
-        vq, vs = quantize_kv(vv, impl=impl)
+        (kq, ks), (vq, vs) = quantize_kv_pair(kk, vv, impl=impl)
         for key, rows in (("k", kq), ("v", vq), ("k_scale", ks),
                           ("v_scale", vs)):
             _update_rows(out[key], rows, slots)

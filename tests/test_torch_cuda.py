@@ -116,19 +116,21 @@ def _rows(R, C, seed, cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("R,C", [(9, 1), (64, 5), (7, 31), (33, 256),
-                                 (5, 1027), (4, 4096), (3, 151_936)])
+                                 (5, 1027), (4, 4096), (3, 151_936),
+                                 (3, 50_257), (300, 8200)])
 def test_quant8_kernels_bit_equal_plain_version(cuda, dtype, R, C):
     """Short rows (a lane group each, C = 1, 5, 31 leave lanes idle), the
-    1027-wide bias and the 151,936-wide LM-head row (one block each); q
-    and scales bit-equal, NaN/inf rows with q = 0 and a non-finite
-    scale; dequantise bit-equal in fp32 and bf16."""
+    1027-wide bias, rows too wide to hold: the 151,936-wide LM-head row
+    and an odd 50,257-wide one (several blocks a row), 300 rows of 8,200
+    (one block a row); q and scales bit-equal, NaN/inf rows with q = 0
+    and a non-finite scale; dequantise bit-equal in fp32 and bf16."""
     x = _rows(R, C, R * C, cuda, dtype)
-    before = (q8kernel.quantize_rows_cuda.launches,
-              q8kernel.dequantize_rows_cuda.launches)
+    before = (q8kernel.quantize_grouped_cuda.launches,
+              q8kernel.dequantize_grouped_cuda.launches)
     q, s = q8ops.quantize_rows(x)
     qr, sr = quantize_rows_ref(x)
     torch.cuda.synchronize()
-    assert q8kernel.quantize_rows_cuda.launches == before[0] + 1
+    assert q8kernel.quantize_grouped_cuda.launches == before[0] + 1
     assert torch.equal(q, qr)
     torch.testing.assert_close(s, sr, rtol=0, atol=0, equal_nan=True)
     bad = min(R, 3)
@@ -137,7 +139,7 @@ def test_quant8_kernels_bit_equal_plain_version(cuda, dtype, R, C):
         got = q8ops.dequantize_rows(q, s, out_dtype=out_dtype)
         torch.testing.assert_close(got, dequantize_rows_ref(q, s, out_dtype),
                                    rtol=0, atol=0, equal_nan=True)
-    assert q8kernel.dequantize_rows_cuda.launches == before[1] + 2
+    assert q8kernel.dequantize_grouped_cuda.launches == before[1] + 2
 
 
 def test_quant8_dequantize_past_two_to_the_31_elements(cuda):
@@ -161,8 +163,8 @@ def test_quant8_dequantize_past_two_to_the_31_elements(cuda):
 
 def test_quant8_kernels_reject_what_they_do_not_take(cuda):
     x = torch.ones(4, 8, device=cuda)
-    before = (q8kernel.quantize_rows_cuda.launches,
-              q8kernel.dequantize_rows_cuda.launches)
+    before = (q8kernel.quantize_grouped_cuda.launches,
+              q8kernel.dequantize_grouped_cuda.launches)
     with pytest.raises(TypeError):
         q8kernel.quantize_rows_cuda(x.half())
     with pytest.raises(ValueError):
@@ -172,20 +174,128 @@ def test_quant8_kernels_reject_what_they_do_not_take(cuda):
         q8kernel.dequantize_rows_cuda(q, s[:2])
     with pytest.raises(TypeError):
         q8kernel.dequantize_rows_cuda(q.int(), s)
-    assert (q8kernel.quantize_rows_cuda.launches,
-            q8kernel.dequantize_rows_cuda.launches) == (before[0] + 1,
+    assert (q8kernel.quantize_grouped_cuda.launches,
+            q8kernel.dequantize_grouped_cuda.launches) == (before[0] + 1,
                                                         before[1])
 
 
+def _mixed(cuda, dtype, seed):
+    """A mixed leaf list: C = 5 beside 1,027, a one-row leaf, the 256-wide
+    exchange rows, the int8 cache's 128, a 4,096 row (one block), a
+    151,936 row and an odd 50,257 one (streamed), a C = 1 leaf and an
+    empty one; NaN/inf rows in every leaf of four rows or more."""
+    shapes = [(64, 5), (5, 1027), (1, 256), (33, 256), (70, 128), (4, 4096),
+              (2, 151_936), (9, 1), (0, 64), (1, 1027), (300, 1024),
+              (3, 50_257)]
+    return [_rows(R, C, seed + i, cuda, dtype)
+            for i, (R, C) in enumerate(shapes)]
+
+
+def _held_grouped(xs, out_dtype, poisoned=True):
+    qss = q8kernel.quantize_grouped_cuda(xs)
+    outs = q8kernel.dequantize_grouped_cuda([q for q, _ in qss],
+                                            [s for _, s in qss], out_dtype)
+    torch.cuda.synchronize()
+    assert len(qss) == len(outs) == len(xs)
+    for x, (q, s), out in zip(xs, qss, outs):
+        qr, sr = quantize_rows_ref(x)
+        assert torch.equal(q, qr), tuple(x.shape)
+        torch.testing.assert_close(s, sr, rtol=0, atol=0, equal_nan=True)
+        torch.testing.assert_close(out, dequantize_rows_ref(q, s, out_dtype),
+                                   rtol=0, atol=0, equal_nan=True)
+        if poisoned:      # _rows' NaN/inf rows: q 0, scale not finite
+            bad = min(x.shape[0], 3)
+            assert not q[:bad].any() and not torch.isfinite(s[:bad]).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant8_grouped_kernels_bit_equal_plain_version(cuda, dtype):
+    """One grouped launch over a mixed list holds every leaf bit for bit
+    against the plain version, in both output dtypes; so do leaves that
+    start off a 16-byte boundary (the element-wise paths), a 151,936-wide
+    row among them."""
+    xs = _mixed(cuda, dtype, 1)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        _held_grouped(xs, out_dtype)
+    base = _rows(3, 4 * 1024 + 8, 7, cuda, dtype).reshape(-1)
+    wide = _rows(3, 151_937, 8, cuda, dtype).reshape(-1)
+    _held_grouped([base[1:1 + 4096].reshape(4, 1024),
+                   base[2:2 + 3 * 256].reshape(3, 256),
+                   wide[1:1 + 2 * 151_936].reshape(2, 151_936)], dtype,
+                  poisoned=False)
+
+
+def test_quant8_grouped_launches_per_capacity(cuda):
+    """A list of n leaves is ceil(n / capacity) launches of each kernel,
+    every leaf still bit-equal; an empty list or empty leaves launch
+    nothing."""
+    cap = q8kernel.capacity()
+    for n in (1, cap - 1, cap, cap + 1, 2 * cap + 3):
+        xs = [_rows(1 + i % 5, 5 + 37 * (i % 7), 100 + i, cuda,
+                    torch.float32) for i in range(n)]
+        before = (q8kernel.quantize_grouped_cuda.launches,
+                  q8kernel.dequantize_grouped_cuda.launches)
+        _held_grouped(xs, torch.float32)
+        want = -(-n // cap)
+        assert (q8kernel.quantize_grouped_cuda.launches - before[0],
+                q8kernel.dequantize_grouped_cuda.launches - before[1]) \
+            == (want, want)
+    before = q8kernel.quantize_grouped_cuda.launches
+    assert q8kernel.quantize_grouped_cuda([]) == []
+    q, s = q8kernel.quantize_rows_cuda(torch.empty(0, 8, device=cuda))
+    assert q.shape == (0, 8) and s.shape == (0, 1)
+    assert q8kernel.quantize_grouped_cuda.launches == before
+
+
+def test_quant8_grouped_kernels_refuse_bad_leaves(cuda):
+    """Each bad leaf in a list is refused before any launch: a leaf on
+    another device, a non-contiguous leaf, fp16, a dtype differing from
+    the list's, a row of 2^30 or more to quantise, a scale of the wrong
+    shape or dtype."""
+    x = torch.ones(4, 8, device=cuda)
+    before = (q8kernel.quantize_grouped_cuda.launches,
+              q8kernel.dequantize_grouped_cuda.launches)
+    with pytest.raises(ValueError):
+        q8kernel.quantize_grouped_cuda([x, x.cpu()])
+    with pytest.raises(ValueError):
+        q8kernel.quantize_grouped_cuda([x, x.t()])
+    with pytest.raises(TypeError):
+        q8kernel.quantize_grouped_cuda([x, x.half()])
+    with pytest.raises(TypeError):
+        q8kernel.quantize_grouped_cuda([x, x.to(torch.bfloat16)])
+    with pytest.raises(ValueError):
+        q8kernel.quantize_grouped_cuda([x, x.reshape(-1)])
+    with pytest.raises(ValueError):       # a row of 2^30: past 32-bit columns
+        q8kernel.quantize_grouped_cuda(
+            [torch.empty(1, 1 << 30, dtype=torch.bfloat16, device=cuda)])
+    (q, s), = q8kernel.quantize_grouped_cuda([x])
+    with pytest.raises(ValueError):
+        q8kernel.dequantize_grouped_cuda([q, q], [s, s[:2]])
+    with pytest.raises(ValueError):
+        q8kernel.dequantize_grouped_cuda([q, q], [s, s.reshape(-1)])
+    with pytest.raises(TypeError):
+        q8kernel.dequantize_grouped_cuda([q, q], [s, s.double()])
+    with pytest.raises(ValueError):
+        q8kernel.dequantize_grouped_cuda([q, q.cpu()], [s, s.cpu()])
+    with pytest.raises(ValueError):
+        q8kernel.dequantize_grouped_cuda([q, q], [s])
+    with pytest.raises(TypeError):
+        q8kernel.dequantize_grouped_cuda([q], [s], torch.float16)
+    assert (q8kernel.quantize_grouped_cuda.launches,
+            q8kernel.dequantize_grouped_cuda.launches) == (before[0] + 1,
+                                                          before[1])
+
+
 def test_flat_q8_exchange_is_ten_launches_and_equals_plain(cuda):
-    """The exchange workload at P = 2: 5 leaves, one quantise and one
-    dequantise each; the kernel exchange equals the plain one exactly."""
+    """The exchange workload at P = 2: 5 leaves in one grouped quantise
+    and one grouped dequantise (ten launches before the kernels took a
+    leaf list); the kernel exchange equals the plain one exactly."""
     stacked, base = fl_exchange.make_tree(2, device=cuda)
-    before = (q8kernel.quantize_rows_cuda.launches,
-              q8kernel.dequantize_rows_cuda.launches)
+    before = (q8kernel.quantize_grouped_cuda.launches,
+              q8kernel.dequantize_grouped_cuda.launches)
     got = fl_exchange.exchange_fn(2, "q8", device=cuda)(stacked, base)
-    assert (q8kernel.quantize_rows_cuda.launches - before[0],
-            q8kernel.dequantize_rows_cuda.launches - before[1]) == (5, 5)
+    assert (q8kernel.quantize_grouped_cuda.launches - before[0],
+            q8kernel.dequantize_grouped_cuda.launches - before[1]) == (1, 1)
     want = fl_exchange.exchange_fn(2, "q8", impl="ref", device=cuda)(
         stacked, base)
     assert fl_exchange.max_abs_diff(got, want) == 0.0
@@ -373,13 +483,13 @@ def test_serve_loop_on_card_matches_solo(cuda):
                                         device=cuda)}, cache)
             out.append(int(nxt[0]))
         want.append(out)
-    q_before = q8kernel.quantize_rows_cuda.launches
+    q_before = q8kernel.quantize_grouped_cuda.launches
     loop = ServeLoop(model, params, max_batch=2, max_len=128)
     for i, p in enumerate(prompts):
         loop.submit(Request(rid=i, prompt=p, max_new=6))
     done = {r.rid: r.out for r in loop.run_until_drained()}
     assert [done[i] for i in range(3)] == want
-    assert q8kernel.quantize_rows_cuda.launches > q_before
+    assert q8kernel.quantize_grouped_cuda.launches > q_before
 
 
 # linrec: (B, T, D) with odd T and D, with and without a starting state

@@ -144,6 +144,26 @@ def test_cohort_off_matches_cohort_on(synmnist, synmnist_test):
                                [r.acc for r in r_off.records], atol=1e-3)
 
 
+def test_as_arrays_and_ckpt_every_match_jax(synmnist, synmnist_test):
+    """`SimResult.as_arrays()` gives the reference's (time, accuracy)
+    arrays for the same 2 sync rounds, and `ckpt_every=` constructs
+    alone as the reference's signature takes it (`ckpt=` still raises)."""
+    jsim, tsim = _sims(synmnist, synmnist_test, policy="all", mode="sync",
+                       epochs=1)
+    (jt, ja), (tt, ta) = (jsim.run_sync(rounds=2).as_arrays(),
+                          tsim.run_sync(rounds=2).as_arrays())
+    assert tt.shape == ta.shape == jt.shape == (3,)
+    np.testing.assert_array_equal(tt, jt)
+    np.testing.assert_allclose(ta, ja, atol=0.01)
+    ti, tl = synmnist_test[0][:256], synmnist_test[1][:256]
+    sim = tevents.FLSimulation(tsim.server, tsim.workers, ti, tl,
+                               ckpt_every=3)
+    assert sim.ckpt_every == 3
+    with pytest.raises(NotImplementedError):
+        tevents.FLSimulation(tsim.server, tsim.workers, ti, tl,
+                             ckpt=object(), ckpt_every=3)
+
+
 def test_quickstart_runs_on_cpu_and_matches_jax():
     """The port's entry point from the same seed as the JAX quickstart:
     the same initial params (to a few ulp), the same batch orders and the

@@ -308,6 +308,47 @@ def test_two_tier_compressed_within_one_quantisation_step(compress, P, K):
                                           compress="q8")
 
 
+def _spy_grouped(monkeypatch):
+    """Count the calls of the grouped quant8 ops (each is one launch per
+    dtype on the card) and of their single-tensor forms."""
+    from repro_torch.kernels.quant8 import ops as q8ops
+    calls = {}
+    for name in ("quantize_rows_grouped", "dequantize_rows_grouped",
+                 "quantize_rowwise", "dequantize_rowwise"):
+        real = getattr(q8ops, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(q8ops, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("compress", ["q8", "q8_topk"])
+def test_exchange_quantises_once_per_hop(monkeypatch, compress):
+    """One grouped quantise and one grouped dequantise over all leaves per
+    exchange hop: 1 each flat, 2 each through the fog tier; none per leaf.
+    compress_tree and decompress_tree make one each for the whole tree."""
+    stacked, base = _tree(6, seed=5)
+    (_, ts), (_, tb) = _both(stacked), _both(base)
+    weights, cell_of = _weights_cells(6, 2, 5)
+    M = tfed.selection_mixing(weights, np.ones(6))
+    want = {"quantize_rows_grouped": 1, "dequantize_rows_grouped": 1}
+    calls = _spy_grouped(monkeypatch)
+    tfed.fl_aggregate_compressed(ts, tb, M, mode=compress, k_frac=0.2)
+    assert calls == want
+    calls.clear()
+    thier.hierarchical_sync_aggregate(ts, weights, cell_of,
+                                      compress=compress, base_params=tb,
+                                      k_frac=0.2)
+    assert calls == {k: 2 for k in want}
+    calls.clear()
+    wire = tcomp.compress_tree(ts, mode=compress, k_frac=0.2)
+    assert calls == {"quantize_rows_grouped": 1}
+    tcomp.decompress_tree(wire)
+    assert calls == want
+
+
 @pytest.mark.parametrize("P,K", [(6, 2), (8, 4)])
 def test_hierarchical_async_matches_jax_and_flat(P, K):
     stacked, _ = _tree(P, seed=17 + P)
@@ -406,8 +447,8 @@ def test_fl_exchange_entry_point_at_two_islands():
     ts, tb = fl_exchange.make_tree(2)
     _close(ts, js, tol=0.0)
     _close(tb, jb, tol=0.0)
-    before = (q8kernel.quantize_rows_cuda.launches,
-              q8kernel.dequantize_rows_cuda.launches)
+    before = (q8kernel.quantize_grouped_cuda.launches,
+              q8kernel.dequantize_grouped_cuda.launches)
     for fog_cells in (1, 2):
         cells, outputs = fl_exchange.run("cpu", islands=(2,), rounds=1,
                                          fog_cells=fog_cells)
@@ -428,8 +469,8 @@ def test_fl_exchange_entry_point_at_two_islands():
         want = fn(js, M) if mode == "f32" else fn(js, jb, M)
         got = fl_exchange.exchange_fn(2, mode)(ts, tb)
         _close(got, want)
-    assert (q8kernel.quantize_rows_cuda.launches,
-            q8kernel.dequantize_rows_cuda.launches) == before
+    assert (q8kernel.quantize_grouped_cuda.launches,
+            q8kernel.dequantize_grouped_cuda.launches) == before
 
 
 def test_island_rounds_run_on_the_host():
