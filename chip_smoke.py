@@ -7,17 +7,25 @@ Phases, in order; any failure exits non-zero and nothing is caught:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from src/repro_torch/kernels/*/csrc, one nvcc
      per source, all started together;
-  3. hold fed_agg against its plain version over K x N x dtype, with its
-     time, the plain version's, one torch.einsum call's (a yardstick the
-     port never calls) and the least time the card could take;
+  3. hold fed_agg against its plain version, bit for bit, over K x N x
+     dtype as groups of one leaf, with its time, the plain version's, one
+     torch.einsum call's (a yardstick the port never calls) and the least
+     time the card could take; then the grouped launch over whole trees
+     (the async merge and a sync round over flight-cnn-mnist's 6 leaves, a
+     mixed fp32 / bf16 tree, K = 1, a tree at a launch's capacity and one
+     member past it, which must be 2 launches), and the async merge timed
+     beside an empty kernel (the launch floor) and as
+     aggregation.async_merge's Python call;
   4. the quickstart path: the port's quickstart on the card (Alg. 2, async,
-     80 merges, seed 0), which must launch fed_agg; the same run at seeds
+     80 merges, seed 0), which must launch fed_agg once a merge; the same
+     run at seeds
      1-7, whose median best accuracy must be within 0.03 of the JAX
      quickstart's median over the same seeds; then a 3-round sync run
      twice, through the kernel and through the plain version, which must
      agree; one round of the same responses folded flat and through a
      2-cell fog tier (params within 1e-6), and the 3 rounds through the
-     fog tier (accuracy within 0.01 of the flat run);
+     fog tier (accuracy within 0.01 of the flat run), 1 and 3 launches a
+     round;
   5. hold the grouped quant8 kernels (quantise, dequantise; one launch
      over a list of leaves) against their plain version, bit for bit:
      over C x rows x dtype with NaN/inf rows as groups of one, with their
@@ -61,16 +69,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      tokens each: one flash launch per layer per admitted prefill, each
      first token equal to its solo prefill's; token agreement with solo
      generation is reported;
-  10. hold linrec against its plain version over tests/test_kernels.py's
-     shapes, odd T (1, 77, 1,000) and odd D (12, 130), with and without a
-     starting state, fp32 and bf16 (2e-4 / 3e-2), and time it at both
-     recurrent models' prefill scans and a falcon decode step beside its
-     bound and the plain version (no single PyTorch call computes it);
+  10. hold linrec against its plain version, bit for bit, over
+     tests/test_kernels.py's shapes, odd T (1, 77, 1,000) and odd D (12,
+     130), with and without a starting state, fp32 and bf16, on each route
+     that takes the shape (column always, tma where TMA can describe it),
+     printing the route kernel.route picks; and time both routes at both
+     recurrent models' prefill scans and a falcon decode step, in turns
+     (the median of three readings a route), beside the bound and the plain version (no single PyTorch call
+     computes it);
   11. falcon-mamba-7b at full width (7.27 B params, bf16, drawn on the
      card): `python -m repro_torch.launch.serve --arch falcon-mamba-7b
      --full --batch 4 --prompt-len 2048 --gen 32` through its main, which
-     must launch linrec once per layer in the prefill (64) and in each
-     decode step (64); then a batch of 2 x 2,048 prefilled through the
+     must launch linrec once per layer in the prefill (64, all on the tma
+     route) and in each decode step (64, on the column route); then a batch of 2 x 2,048 prefilled through the
      kernel, each layer's scan held against the plain version on the same
      a, b (2e-4), and again through the plain version: last-position
      logits within 2e-2 scale-relative;
@@ -236,39 +247,126 @@ def kernel_sweep(torch, np):
     rows = []
     g = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.default_rng(0)
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+    for dtype in (torch.float32, torch.bfloat16):
         for K in (1, 2, 5, 8):
             for N in (128, 5_000, 20_490, 1 << 24):
                 x = torch.randn(K, N, generator=g, device="cuda").to(dtype)
-                w = torch.as_tensor(rng.dirichlet([1.0] * K),
-                                    dtype=torch.float32).cuda()
-                got = fed_agg_cuda(x, w)
+                w_host = rng.dirichlet([1.0] * K)   # by value to the kernel
+                w = torch.as_tensor(w_host, dtype=torch.float32).cuda()
+                got = fed_agg_cuda(x, w_host)
                 want = fed_agg_2d_ref(x, w)
                 torch.cuda.synchronize()
-                torch.testing.assert_close(got.float(), want.float(),
-                                           rtol=tol, atol=tol)
+                check(torch.equal(got, want), f"fed_agg K={K} N={N} {dtype}"
+                      " differs from ref.py")
                 err = float((got.float() - want.float()).abs().max())
                 wl = w.to(dtype)
                 iters = 200 if N <= 20_490 else 20
-                ms = graph_ms(torch, lambda: fed_agg_cuda(x, w), iters)
+                ms = graph_ms(torch, lambda: fed_agg_cuda(x, w_host), iters)
                 plain = graph_ms(torch, lambda: fed_agg_2d_ref(x, w), iters)
                 lib = graph_ms(torch, lambda: torch.einsum("kn,k->n", x, wl),
                                iters)
-                call = eager_ms(torch, lambda: fed_agg_cuda(x, w), iters)
-                b_ms, b_by = bound((K + 1) * N * x.element_size() + 4 * K,
-                                   2 * K * N)
+                call = eager_ms(torch, lambda: fed_agg_cuda(x, w_host), iters)
+                b_ms, b_by = bound((K + 1) * N * x.element_size(), 2 * K * N)
                 row = {"K": K, "N": N, "dtype": str(dtype).split(".")[-1],
-                       "max_abs_err": err, "tol": tol, "ms": ms,
+                       "max_abs_err": err, "ms": ms,
                        "plain_ms": plain, "library_ms": lib,
                        "call_ms": call, "bound_ms": b_ms, "bound_by": b_by}
                 rows.append(row)
-                print(f"fed_agg K={K} N={N} {row['dtype']}: "
-                      f"err={err:.3g} (tol {tol}) kernel={ms:.5f} ms "
+                print(f"fed_agg K={K} N={N} {row['dtype']}: bit-equal, "
+                      f"kernel={ms:.5f} ms "
                       f"plain={plain:.5f} ms einsum={lib:.5f} ms "
                       f"bound={row['bound_ms']:.5f} ms ({row['bound_by']}, "
                       f"{row['bound_ms'] / ms:.1%} of it) "
                       f"python call={call:.5f} ms", flush=True)
     return rows
+
+
+def fed_agg_tree_sweep(torch, np):
+    """The grouped kernel on the main path's merges, held bit for bit
+    against the plain version and timed: the async merge (K = 2) and a
+    sync round (K = 5) over flight-cnn-mnist's 6 leaves, a mixed fp32 /
+    bf16 tree, and a tree past a launch's capacity (its launches counted);
+    beside them an empty kernel's graph time, the launch floor, and the
+    async merge as the server calls it (`aggregation.async_merge`) in
+    Python-call time.  -> the async merge's record."""
+    from repro_torch import threefry
+    from repro_torch.configs import get_config
+    from repro_torch.core import aggregation
+    from repro_torch.kernels.fed_agg import kernel as fa
+    from repro_torch.kernels.fed_agg.ref import (fed_agg_2d_ref,
+                                                 fed_agg_grouped_ref)
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, tree_map
+    rng = np.random.default_rng(1)
+    model = build_model(get_config("flight-cnn-mnist"))
+    cnn = model.init(threefry.key(0), torch.device("cuda"))
+    shapes = [(tuple(l.shape), l.dtype) for l in leaves(cnn)]
+    mixed = [((33, 7), torch.float32), ((130,), torch.bfloat16),
+             ((4, 5, 6), torch.float32), ((2048,), torch.bfloat16),
+             ((3, 1025), torch.float32)]
+
+    def members(K, shapes):
+        return [[torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+            "cuda", dt) for s, dt in shapes] for _ in range(K)]
+
+    def held(label, ms_, w, launches):
+        before = fa.fed_agg_grouped_cuda.launches
+        got = fa.fed_agg_grouped_cuda(ms_, w)
+        n = fa.fed_agg_grouped_cuda.launches - before
+        want = fed_agg_grouped_ref(ms_, w)
+        torch.cuda.synchronize()
+        check(n == launches, f"fed_agg {label}: {n} launches, expected "
+              f"{launches}")
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        for a, b in zip(got, want):
+            check(torch.equal(a, b), f"fed_agg {label}: differs from ref.py")
+        print(f"fed_agg grouped, {label}: {len(ms_)} members x "
+              f"{len(ms_[0])} leaves, {n} launch(es), bit-equal", flush=True)
+        return err
+
+    slots, parts = fa.capacity()
+    cases = [("async merge, flight-cnn-mnist", members(2, shapes), 1),
+             ("sync round, flight-cnn-mnist", members(5, shapes), 1),
+             ("mixed fp32/bf16 tree", members(3, mixed), 1),
+             ("K = 1", members(1, mixed), 1),
+             (f"capacity edge ({slots} slots)",
+              members(slots // len(mixed), mixed), 1),
+             ("one member past it", members(slots // len(mixed) + 1,
+                                           mixed), 2)]
+    errs = [held(label, ms_, rng.dirichlet([1.0] * len(ms_)), launches)
+            for label, ms_, launches in cases]
+    print(f"fed_agg capacity: {slots} member slots, {parts} leaves a launch",
+          flush=True)
+
+    merge = cases[0][1]
+    w = [0.7, 0.3]
+    w_dev = torch.tensor(w, dtype=torch.float32, device="cuda")
+    n = sum(t.numel() for t in merge[0])
+    ms = graph_ms(torch, lambda: fa.fed_agg_grouped_cuda(merge, w), 500)
+    floor = graph_ms(torch, fa.empty_launch, 500)
+    plain = graph_ms(torch, lambda: [fed_agg_2d_ref(torch.stack(
+        [m[l].reshape(-1) for m in merge]), w_dev) for l in range(len(
+            merge[0]))], 100)
+    call = eager_ms(torch, lambda: fa.fed_agg_grouped_cuda(merge, w), 1000)
+    floor_call = eager_ms(torch, fa.empty_launch, 1000)
+    server = cnn
+    worker = tree_map(lambda p: p + 0.01, cnn)
+    merge_call = eager_ms(torch, lambda: aggregation.async_merge(
+        server, worker, 0.3), 1000)
+    b_ms, b_by = bound(3 * n * 4, 4 * n)
+    rec = {"max_abs_err": errs[0], "ms": ms, "plain_ms": plain,
+           "floor_ms": floor, "call_ms": call, "floor_call_ms": floor_call,
+           "async_merge_call_ms": merge_call, "bound_ms": b_ms,
+           "bound_by": b_by}
+    print(f"fed_agg async merge of flight-cnn-mnist's tree (K = 2, 6 leaves,"
+          f" {n} fp32): one grouped launch {ms * 1e3:.3f} us (graph), empty "
+          f"kernel {floor * 1e3:.3f} us (the launch floor), plain "
+          f"{plain * 1e3:.3f} us, bound {b_ms * 1e3:.4f} us ({b_by}); a "
+          f"Python call {call * 1e3:.2f} us (empty launch "
+          f"{floor_call * 1e3:.2f} us), aggregation.async_merge "
+          f"{merge_call * 1e3:.2f} us a call", flush=True)
+    return rec
 
 
 def poisoned_rows(torch, R: int, C: int, dtype, seed: int):
@@ -698,8 +796,9 @@ def lm_serve(torch, arch: str, batch: int):
     torch.cuda.reset_peak_memory_stats()
     for fn in serve.KERNELS.values():
         fn.launches = 0
+        fn.routes.update(dict.fromkeys(fn.routes, 0))
     routes = serve.KERNELS["flash_attention"].routes
-    routes.update(dict.fromkeys(routes, 0))
+    lr_routes = serve.KERNELS["linrec"].routes
     t0 = time.perf_counter()
     res = serve.main(["--arch", arch, "--full", "--batch", str(batch),
                       "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN)])
@@ -721,6 +820,12 @@ def lm_serve(torch, arch: str, batch: int):
           and sum(routes.values()) == routes["wgmma"],
           f"serve {arch} --full: flash launches by route {routes}; every one "
           "should take wgmma")
+    # every prefill scan on the TMA kernel, every decode step's on the
+    # column kernel
+    want_lr = {"tma": per_prefill["linrec"],
+               "column": per_step["linrec"] * steps}
+    check(lr_routes == want_lr, f"serve {arch} --full: linrec launches by "
+          f"route {lr_routes}, expected {want_lr}")
     toks = res["tokens"]
     check(toks.shape == (batch, LM_GEN) and toks.min() >= 0
           and toks.max() < model.cfg.vocab_size,
@@ -733,7 +838,8 @@ def lm_serve(torch, arch: str, batch: int):
           f"({batch * LM_PROMPT / pre:.0f} tok/s), decode "
           f"{dec * 1e3 / steps:.2f} ms/step ({batch * steps / dec:.0f} "
           f"tok/s), launches {launches} ({per_prefill} in the prefill, "
-          f"{per_step} per decode step; flash by route {routes}), peak memory"
+          f"{per_step} per decode step; flash by route {routes}, linrec by "
+          f"route {lr_routes}), peak memory"
           f" {peak:.2f} GB, "
           f"{wall:.1f} s wall", flush=True)
     return res, launches, peak
@@ -819,8 +925,8 @@ def lm_serve_loop(torch, model, params, lengths):
                for n in lengths]
     for fn in serve.KERNELS.values():
         fn.launches = 0
+        fn.routes.update(dict.fromkeys(fn.routes, 0))
     routes = serve.KERNELS["flash_attention"].routes
-    routes.update(dict.fromkeys(routes, 0))
     t0 = time.perf_counter()
     loop = ServeLoop(model, params, max_batch=LOOP_SLOTS,
                      max_len=LOOP_MAX_LEN)
@@ -847,8 +953,8 @@ def lm_serve_loop(torch, model, params, lengths):
           f"{LOOP_MAX_LEN}: {len(prompts)} requests (prompts {lengths}) x "
           f"{LOOP_NEW} tokens in {wall:.2f} s "
           f"({len(prompts) * LOOP_NEW / wall:.1f} tok/s), "
-          f"{loop.decode_steps} decode steps, launches {launches}",
-          flush=True)
+          f"{loop.decode_steps} decode steps, launches {launches} (linrec by "
+          f"route {serve.KERNELS['linrec'].routes})", flush=True)
     prefill, decode = make_prefill_step(model), make_decode_step(model)
     first_equal, agree = 0, 0
     for i, p in enumerate(prompts):
@@ -875,9 +981,11 @@ def lm_serve_loop(torch, model, params, lengths):
 
 def linrec_sweep(torch):
     """linrec vs its plain version over LR_SWEEP x dtype x (zero, random
-    h0); then both models' prefill scans and a falcon decode step, timed;
-    -> the records of the timed shapes, by name."""
-    from repro_torch.kernels.linrec.kernel import linrec_cuda
+    h0), bit for bit, on each route that takes the shape (column always,
+    tma where TMA can describe it), printing the route kernel.route picks;
+    then both models' prefill scans and a falcon decode step, timed on
+    both routes; -> the records of the timed shapes, by name."""
+    from repro_torch.kernels.linrec.kernel import linrec_cuda, route, tma_ok
     from repro_torch.kernels.linrec.ref import linrec_ref
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -886,21 +994,25 @@ def linrec_sweep(torch):
         b = 0.1 * torch.randn(B, T, D, generator=g, device="cuda")
         return a.to(dtype), b.to(dtype)
 
+    def routes(a, b):
+        return ("column", "tma") if tma_ok(a, b) else ("column",)
+
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for B, T, D in LR_SWEEP:
             a, b = ab(B, T, D, dtype)
             for h0 in (None, torch.randn(B, D, generator=g, device="cuda")):
-                got = linrec_cuda(a, b, h0)
                 want = linrec_ref(a, b, h0)
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                check(err <= LR_TOL[name] and bool(torch.isfinite(got).all()),
-                      f"linrec {name} B={B} T={T} D={D} h0="
-                      f"{h0 is not None}: max |diff| {err} > {LR_TOL[name]}")
+                for r in routes(a, b):
+                    got = linrec_cuda(a, b, h0, route_name=r)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want), f"linrec {name} B={B} T={T}"
+                          f" D={D} h0={h0 is not None} route {r}: max |diff| "
+                          f"{float((got - want).abs().max())}, not bit-equal")
                 print(f"linrec {name} B={B} T={T} D={D} h0="
-                      f"{'random' if h0 is not None else 'zeros'}: max "
-                      f"|diff| {err:.3g} (tol {LR_TOL[name]})", flush=True)
+                      f"{'random' if h0 is not None else 'zeros'}: route "
+                      f"{route(a, b)}; bit-equal to ref.py on "
+                      f"{' and '.join(routes(a, b))}", flush=True)
     shapes = {f"{arch} prefill": (*shape, False)
               for arch, shape in LR_MAIN.items()}
     shapes[f"{SSM_ARCH} decode step"] = (SSM_BATCH, 1, 8192 * 16, True)
@@ -909,28 +1021,44 @@ def linrec_sweep(torch):
         a, b = ab(B, T, D, torch.float32)
         h0 = torch.randn(B, D, generator=g, device="cuda") if with_h0 \
             else None
-        got = linrec_cuda(a, b, h0)
-        err = float((got - linrec_ref(a, b, h0)).abs().max())
-        check(err <= LR_TOL["float32"], f"linrec {label}: {err}")
-        del got
+        want = linrec_ref(a, b, h0)
+        err = 0.0
+        for r in routes(a, b):
+            got = linrec_cuda(a, b, h0, route_name=r)
+            torch.cuda.synchronize()
+            err = max(err, float((got - want).abs().max()))
+            check(torch.equal(got, want), f"linrec {label} route {r}: not "
+                  "bit-equal to ref.py")
+        del got, want
         iters = 20 if T == 1 else 5
-        ms = graph_ms(torch, lambda: linrec_cuda(a, b, h0), iters)
+        # the column kernel beside the tma one in turns, three readings
+        # each; a route's time is the median of its three
+        ms = {}
+        for r in ("column", "tma", "tma", "column", "column", "tma"):
+            ms.setdefault(r, []).append(graph_ms(
+                torch, lambda: linrec_cuda(a, b, h0, route_name=r), iters))
+        ms = {r: statistics.median(v) for r, v in ms.items()}
+        taken = route(a, b)
         plain_ms = graph_ms(torch, lambda: linrec_ref(a, b, h0),
                             iters if T == 1 else 1)
         call_ms = eager_ms(torch, lambda: linrec_cuda(a, b, h0), iters)
         n = B * T * D
         nbytes = 12 * n + (4 * B * D if with_h0 else 0)
         b_ms, b_by = bound(nbytes, 2 * n)
-        recs[label] = {"shape": (B, T, D), "max_abs_err": err, "ms": ms,
+        recs[label] = {"shape": (B, T, D), "max_abs_err": err,
+                       "route_taken": taken, "ms": ms[taken],
+                       "column_ms": ms["column"], "tma_ms": ms["tma"],
                        "plain_ms": plain_ms, "library_ms": None,
                        "call_ms": call_ms, "bound_ms": b_ms,
                        "bound_by": b_by}
         print(f"linrec {label} B={B} T={T} D={D} fp32"
-              f"{' from h0' if with_h0 else ''}: {ms:.4f} ms "
-              f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
+              f"{' from h0' if with_h0 else ''}: route {taken}; tma "
+              f"{ms['tma']:.4f} ms ({b_ms / ms['tma']:.2%} of the bound), "
+              f"column {ms['column']:.4f} ms "
+              f"({b_ms / ms['column']:.2%}), plain {plain_ms:.4f} ms, "
               f"library none, bound {b_ms:.4f} ms ({b_by}; "
-              f"{nbytes / 1e9:.3f} GB; {b_ms / ms:.2%} of it), python call "
-              f"{call_ms:.4f} ms, max |diff| {err:.3g}", flush=True)
+              f"{nbytes / 1e9:.3f} GB), python call {call_ms:.4f} ms, "
+              "bit-equal on both routes", flush=True)
         del a, b, h0
         torch.cuda.empty_cache()
     return recs
@@ -974,19 +1102,21 @@ def main() -> int:
 
     # 3. kernel vs plain version (launches here are not the main path's)
     rows = kernel_sweep(torch, np)
+    fa_merge = fed_agg_tree_sweep(torch, np)
 
     # 4. main path: the quickstart on the card, counted from zero
-    kernel.fed_agg_cuda.launches = 0
+    kernel.fed_agg_grouped_cuda.launches = 0
     t0 = time.perf_counter()
     result = quickstart.run("cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernel.fed_agg_cuda.launches
+    launches = kernel.fed_agg_grouped_cuda.launches
     merges = result.records[-1].round
     print(f"quickstart (cuda): {wall:.2f} s wall, {merges} merges, "
           f"{launches} fed_agg launches ({launches / max(merges, 1):.2f} "
           f"per merge)", flush=True)
-    check(launches > 0, "the main path launched no fed_agg kernel")
+    check(launches == merges, f"the quickstart made {launches} fed_agg "
+          f"launches in {merges} merges; one a merge expected")
 
     best = {}
     for seed in JAX_BEST_ACC:
@@ -1009,10 +1139,10 @@ def main() -> int:
     # cuDNN deterministic the two runs differ only in the merge
     sync = {}
     for impl in ("auto", "ref"):
-        kernel.fed_agg_cuda.launches = 0
+        kernel.fed_agg_grouped_cuda.launches = 0
         sim = quickstart.make_simulation("cuda", policy="all", mode="sync",
                                          impl=impl)
-        sync[impl] = (sim.run_sync(rounds=3), kernel.fed_agg_cuda.launches)
+        sync[impl] = (sim.run_sync(rounds=3), kernel.fed_agg_grouped_cuda.launches)
     (rk, nk), (rr, nr) = sync["auto"], sync["ref"]
     check([(r.time, r.round) for r in rk.records]
           == [(r.time, r.round) for r in rr.records],
@@ -1042,9 +1172,9 @@ def main() -> int:
         for w in sorted(servers[1].stats)}
     merged = {}
     for cells, srv in servers.items():
-        kernel.fed_agg_cuda.launches = 0
+        kernel.fed_agg_grouped_cuda.launches = 0
         srv.sync_aggregate(responses, 1.0)
-        merged[cells] = (srv.params, kernel.fed_agg_cuda.launches)
+        merged[cells] = (srv.params, kernel.fed_agg_grouped_cuda.launches)
     fold_gap = max(float((a - b).abs().max()) for a, b in
                    zip(leaves(merged[1][0]), leaves(merged[2][0])))
     check(fold_gap <= FOG_FOLD_TOL and merged[1][1] == 1
@@ -1059,11 +1189,11 @@ def main() -> int:
     # the same 3 sync rounds folded edge -> fog -> cloud: 2 cells + the
     # cloud; 4 local epochs a round amplify the fold's rounding, so
     # accuracy is held here, the params above
-    kernel.fed_agg_cuda.launches = 0
+    kernel.fed_agg_grouped_cuda.launches = 0
     sim = quickstart.make_simulation("cuda", policy="all", mode="sync")
     sim.server.topology = FogTopology.round_robin(sim.workers, 2)
     rf = sim.run_sync(rounds=3)
-    nf = kernel.fed_agg_cuda.launches
+    nf = kernel.fed_agg_grouped_cuda.launches
     fog_acc = max(abs(a.acc - b.acc) for a, b in zip(rk.records, rf.records))
     fog_gap = max(float((a - b).abs().max()) for a, b in
                   zip(leaves(rk.final_params), leaves(rf.final_params)))
@@ -1172,16 +1302,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 14. results
+    # fed_agg on its main path: one grouped launch over the async merge's
+    # tree; library_ms is one einsum over the same elements as a (2, N)
+    # stack (the sweep's (2, 20,490) row), which no tree call has
     main_row = next(r for r in rows if (r["K"], r["N"], r["dtype"])
                     == MAIN_SHAPE)
     table = [{
         "name": "fed_agg", "route": "cuda",
         "source": "src/repro_torch/kernels/fed_agg/csrc/fed_agg.cu",
         "replaces": "src/repro/kernels/fed_agg/kernel.py:40",
-        "launches": launches, "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]
+        "launches": launches, "max_abs_err": fa_merge["max_abs_err"],
+        "ms": fa_merge["ms"], "plain_ms": fa_merge["plain_ms"],
+        "bound_ms": fa_merge["bound_ms"], "bound_by": fa_merge["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "floor_ms": fa_merge["floor_ms"],
+        "async_merge_call_ms": fa_merge["async_merge_call_ms"]}]
     for name, line in (("quantize", 46), ("dequantize", 68)):
         # one grouped launch over the exchange: the ms keys cold (L2
         # flushed first), the *_warm_ms keys with the inputs in L2
@@ -1207,6 +1342,8 @@ def main() -> int:
         "plain_ms": fa_main["plain_ms"], "bound_ms": fa_main["bound_ms"],
         "bound_by": fa_main["bound_by"],
         "library_ms": fa_main["library_ms"]})
+    # linrec on its main path: the tma route at falcon's prefill scan; the
+    # column kernel (the other route) read in the same call
     lr = lr_main[f"{SSM_ARCH} prefill"]
     table.append({
         "name": "linrec", "route": "cuda",
@@ -1217,7 +1354,10 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in lr_main.values()),
         "ms": lr["ms"], "plain_ms": lr["plain_ms"],
         "bound_ms": lr["bound_ms"], "bound_by": lr["bound_by"],
-        "library_ms": lr["library_ms"]})
+        "library_ms": lr["library_ms"], "kernel_route": lr["route_taken"],
+        "column_ms": lr["column_ms"],
+        "narrow_ms": lr_main[f"{HYBRID_ARCH} prefill"]["ms"],
+        "narrow_bound_ms": lr_main[f"{HYBRID_ARCH} prefill"]["bound_ms"]})
     print(f"quant8 sweep: {len(q8_rows)} shapes x 2 kernels, all bit-equal",
           flush=True)
     print(f"launches: {LM_ARCH} serve {lm_launches}, ServeLoop "

@@ -4,11 +4,18 @@ Runs the quickstart (Alg. 2, async, 80 merges, seed 0) twice on CUDA: once
 with each layer's host time taken between synchronisations (local training,
 evaluation, the server's merge, the rest of the engine), once under
 `torch.profiler` for the device's kernel time by name and its busy share.
+With `--merge`, instead, one async merge of the quickstart's tree as the
+server calls it (`aggregation.async_merge`, K = 2 over flight-cnn-mnist's
+6 leaves): its time a Python call, and its device operations and
+host-side CUDA calls under the profiler.  That part uses only what every
+tree of the port has, so an older tree can be read with this script:
 
-  PYTHONPATH=src python -m repro_torch.examples.profile_quickstart
+  PYTHONPATH=src python -m repro_torch.examples.profile_quickstart [--merge]
+  PYTHONPATH=<older tree>/src python src/repro_torch/examples/profile_quickstart.py --merge
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import subprocess
 import time
@@ -16,7 +23,9 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.core import aggregation
 from repro_torch.examples import quickstart
+from repro_torch.tree import tree_map
 
 
 def _timed(obj, name: str, bucket: dict, label: str):
@@ -63,11 +72,53 @@ def device_profile(max_merges: int):
     return wall, sorted(kernels, key=lambda e: -e.self_device_time_total)
 
 
-def main():
+def merge_calls(n: int = 1000, repeats: int = 5):
+    """One async merge of the quickstart's tree: its time a Python call
+    (the median of `repeats` runs of n calls, one synchronise after each
+    run), then under the profiler one call's device operations and the
+    host's CUDA runtime calls by name."""
+    server = quickstart.make_simulation("cuda").server.params
+    worker = tree_map(lambda p: p + 0.01, server)
+    for _ in range(20):
+        aggregation.async_merge(server, worker, 0.3)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            aggregation.async_merge(server, worker, 0.3)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) / n * 1e6)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        aggregation.async_merge(server, worker, 0.3)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = {e.key: e.count for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA}
+    runtime = {e.key: e.count for e in events
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.key.startswith("cuda")}
+    runs.sort()
+    print(f"async_merge on the quickstart's tree: "
+          f"{runs[len(runs) // 2]:.2f} us a Python call (median of "
+          f"{repeats} runs of {n}: {[round(r, 2) for r in runs]}); device "
+          f"operations a merge {sum(device.values())}: {device}; host CUDA "
+          f"calls {runtime}", flush=True)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--merge", action="store_true",
+                    help="only the async merge's call time and operations")
+    args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
+    if args.merge:      # its own process: a second profiler run in one
+        merge_calls()   # process may record no device activity
+        return
     quickstart.run("cuda", max_merges=4)          # warm-up: build, cuDNN
     times = layer_times(80)
     total = times.pop("total")

@@ -19,7 +19,7 @@ from repro_torch.core.events import FLSimulation, SimResult
 from repro_torch.core.server import AggregationServer, ServerConfig
 from repro_torch.data.partition import partition_by_batches
 from repro_torch.data.synthetic import make_classification_set
-from repro_torch.kernels.fed_agg.kernel import fed_agg_cuda
+from repro_torch.kernels.fed_agg.kernel import fed_agg_grouped_cuda
 from repro_torch.models import build_model
 from repro_torch.runtime import resolve_device
 
@@ -70,7 +70,7 @@ def main(argv=None):
         print(f"t={r.time:7.1f}s  acc={r.acc:.3f}  merges={r.round}")
     print(f"\nbest accuracy {result.best_acc:.3f}; "
           f"time to 80%: {result.time_to_accuracy(0.8):.1f}s simulated")
-    print(f"fed_agg kernel launches: {fed_agg_cuda.launches}")
+    print(f"fed_agg kernel launches: {fed_agg_grouped_cuda.launches}")
 
 
 if __name__ == "__main__":

@@ -2,8 +2,9 @@
 
 Sources under `<kernel>/csrc/` have a plain C interface; nvcc compiles them
 for Hopper (`sm_90a`) into `kernels/_build/` (listed in .gitignore), named
-by a hash of the sources and flags so an edited source is never served
-from a stale library.  The build happens at first use, never at import.
+by a hash of the sources, the headers they include from `csrc_common/`
+and the flags, so an edited source or header is never served from a stale
+library.  The build happens at first use, never at import.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import subprocess
 from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+COMMON = Path(__file__).resolve().parent / "csrc_common"   # shared headers
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -32,16 +34,19 @@ def nvcc_path() -> str:
                        "toolkit and the card")
 
 
-def library_path(name: str, sources: list[Path]) -> Path:
+def library_path(name: str, sources: list[Path],
+                 headers: list[Path] = ()) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *headers):
         h.update(Path(src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_library(name: str, sources: list[Path]) -> Path:
-    """Compile `sources` unless the library for their exact content exists."""
-    out = library_path(name, sources)
+def build_library(name: str, sources: list[Path],
+                  headers: list[Path] = ()) -> Path:
+    """Compile `sources` unless the library for their exact content, and
+    that of the `headers` they include, exists."""
+    out = library_path(name, sources, headers)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -55,5 +60,6 @@ def build_library(name: str, sources: list[Path]) -> Path:
     return out
 
 
-def load_library(name: str, sources: list[Path]) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build_library(name, sources)))
+def load_library(name: str, sources: list[Path],
+                 headers: list[Path] = ()) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build_library(name, sources, headers)))

@@ -2,6 +2,7 @@
 held against, and the path for tensors on the CPU)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -18,3 +19,13 @@ def fed_agg_2d_ref(stacked: torch.Tensor, weights: torch.Tensor
     for k in range(x.shape[0]):
         acc = acc + w[k] * x[k]
     return acc.to(stacked.dtype)
+
+
+def fed_agg_grouped_ref(members, weights) -> list[torch.Tensor]:
+    """members[k][l]: leaf l of member k; weights K values on the host,
+    rounded once to fp32 -> the merged leaves, each fed_agg_2d_ref over its
+    K members (the grouped kernel's function, leaf by leaf)."""
+    w = torch.from_numpy(np.asarray(weights, np.float64).astype(np.float32))
+    return [fed_agg_2d_ref(torch.stack([m[l].reshape(-1) for m in members]),
+                           w).view(leaf.shape)
+            for l, leaf in enumerate(members[0])]

@@ -113,7 +113,7 @@
 // through cuTensorMapEncodeTiled, looked up at run time through the CUDA
 // runtime, so the library needs no -lcuda.
 
-#include <cuda.h>   // CUtensorMap and its enums; no libcuda is linked
+#include "../../csrc_common/tma.cuh"   // mbarriers, the TMA map encoder
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -358,10 +358,6 @@ __global__ void __launch_bounds__(NT) flash_fwd_fma(const Args a) {
 // flash_fwd_mma: bf16 tensor cores (mma.sync m16n8k16), D <= 128
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -589,37 +585,6 @@ template <int DP> struct Wg {
   static constexpr size_t SMEM = 1024 /* alignment slack */ + Q_BYTES +
                                  STAGES * STAGE_BYTES + 8 * (1 + 2 * STAGES);
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// wait until the phase of parity `parity` has completed; a phase that never
-// completes (a fault of this kernel) traps after seconds instead of hanging
-// the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t tries = 0;; ++tries) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (tries == (1u << 26)) __trap();
-  }
-}
 
 // one box of the 4-d map (D, H, T, B) at (d, h, t, b) into shared `dst`
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
@@ -1009,32 +974,6 @@ cudaError_t launch_mma(const Args& a, int64_t B, cudaStream_t s) {
   if (a.D <= 32) return launch<bf16, 32, true>(a, B, s);
   if (a.D <= 64) return launch<bf16, 64, true>(a, B, s);
   return launch<bf16, 128, true>(a, B, s);
-}
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // (B, T, H, D) bf16 with element strides -> the 4-d map (D, H, T, B) whose

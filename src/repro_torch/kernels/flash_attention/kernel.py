@@ -23,9 +23,10 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import COMMON, load_library
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
+HEADERS = [COMMON / "tma.cuh"]   # included by the source
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("fma", "mma", "wgmma")   # the C entry point's route codes 0, 1, 2
 MAX_HEAD_DIM = 256
@@ -34,7 +35,7 @@ _LIB: list[ctypes.CDLL] = []   # loaded once per process
 
 def library() -> ctypes.CDLL:
     if not _LIB:
-        lib = load_library("flash_attention", SOURCES)
+        lib = load_library("flash_attention", SOURCES, HEADERS)
         fn = lib.flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 14
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float,

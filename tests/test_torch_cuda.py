@@ -43,21 +43,19 @@ def _inputs(K, n, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fed_agg_kernel_matches_plain_version(cuda, dtype):
-    """Ragged N (1, 7, 5000, 20,490 are not multiples of 8) takes the
-    masked element-wise path; 128 and 2048 the 16-byte vector path."""
+    """Ragged N (1, 7, 5000, 20,490 are not multiples of 8) ends in the
+    element-wise tail; 128 and 2048 are whole 16-byte vectors.  A group of
+    one leaf, one launch, bit-equal to the plain version."""
     for K in (1, 2, 5, 8):
         for n in (1, 7, 128, 2048, 5000, 20_490):
             x, w = _inputs(K, n)
             xt = torch.from_numpy(x).to(cuda, dtype)
-            wt = torch.from_numpy(w).to(cuda)
-            before = tkernel.fed_agg_cuda.launches
-            got = fed_agg(xt, wt)
+            before = tkernel.fed_agg_grouped_cuda.launches
+            got = fed_agg(xt, w)
             torch.cuda.synchronize()
-            assert tkernel.fed_agg_cuda.launches == before + 1
+            assert tkernel.fed_agg_grouped_cuda.launches == before + 1
             assert got.dtype == dtype and got.shape == (n,)
-            torch.testing.assert_close(got.float(),
-                                       fed_agg_2d_ref(xt, wt).float(),
-                                       rtol=TOL[dtype], atol=TOL[dtype])
+            assert torch.equal(got, fed_agg_2d_ref(xt, torch.from_numpy(w)))
 
 
 def test_fed_agg_kernel_unaligned_rows(cuda):
@@ -67,38 +65,147 @@ def test_fed_agg_kernel_unaligned_rows(cuda):
     base = torch.from_numpy(x).to(cuda).reshape(-1)
     xt = base[1:1 + 3 * 1024].reshape(3, 1024)     # N % 4 == 0, unaligned
     assert xt.data_ptr() % 16 != 0 and xt.is_contiguous()
-    wt = torch.from_numpy(w).to(cuda)
-    got = tkernel.fed_agg_cuda(xt, wt)
+    got = tkernel.fed_agg_cuda(xt, w)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, fed_agg_2d_ref(xt, wt), rtol=1e-5,
-                               atol=1e-5)
+    assert torch.equal(got, fed_agg_2d_ref(xt, torch.from_numpy(w)))
 
 
 def test_fed_agg_kernel_rejects_what_it_does_not_take(cuda):
+    """fp16, a non-contiguous member, too few weights, weights on the card
+    (they are passed by value), leaves of differing shape or device: each
+    refused before any launch."""
     x, w = _inputs(2, 64)
-    wt = torch.from_numpy(w).to(cuda)
-    before = tkernel.fed_agg_cuda.launches
+    xt = torch.from_numpy(x).to(cuda)
+    before = tkernel.fed_agg_grouped_cuda.launches
     with pytest.raises(TypeError):
-        tkernel.fed_agg_cuda(torch.from_numpy(x).to(cuda, torch.float16), wt)
+        tkernel.fed_agg_cuda(xt.half(), w)
     with pytest.raises(ValueError):
-        tkernel.fed_agg_cuda(torch.from_numpy(x).to(cuda).t(), wt)
+        tkernel.fed_agg_cuda(xt.t(), w)
     with pytest.raises(ValueError):
-        tkernel.fed_agg_cuda(torch.from_numpy(x).to(cuda), wt[:1])
-    assert tkernel.fed_agg_cuda.launches == before
+        tkernel.fed_agg_cuda(xt, w[:1])
+    with pytest.raises(ValueError):
+        tkernel.fed_agg_cuda(xt, torch.from_numpy(w).to(cuda))
+    with pytest.raises(ValueError):
+        tkernel.fed_agg_grouped_cuda([[xt[0]], [xt[1, :32]]], w)
+    with pytest.raises(ValueError):
+        tkernel.fed_agg_grouped_cuda([[xt[0]], [xt[1].cpu()]], w)
+    assert tkernel.fed_agg_grouped_cuda.launches == before
+
+
+def _grouped_held(members, w, launches):
+    """The grouped kernel over members[k][l], bit-equal to the plain
+    version leaf by leaf, in `launches` launches."""
+    from repro_torch.kernels.fed_agg.ref import fed_agg_grouped_ref
+    before = tkernel.fed_agg_grouped_cuda.launches
+    got = tkernel.fed_agg_grouped_cuda(members, w)
+    torch.cuda.synchronize()
+    assert tkernel.fed_agg_grouped_cuda.launches - before == launches
+    want = fed_agg_grouped_ref(members, w)
+    for g, x, leaf in zip(got, want, members[0]):
+        assert g.dtype == leaf.dtype and g.shape == leaf.shape
+        assert torch.equal(g, x), (tuple(leaf.shape), leaf.dtype)
+
+
+def _tree(rng, cuda, shapes):
+    """A member's leaves: (shape, dtype) normal fp32 values cast."""
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        cuda, dt) for s, dt in shapes]
+
+
+def test_fed_agg_grouped_bit_equal_over_trees(cuda):
+    """Mixed fp32 / bf16 trees (one launch whatever the dtypes), leaves
+    that start off a 16-byte boundary among aligned ones, K = 1, and K = 2
+    over flight-cnn-mnist's own leaf shapes (the async merge)."""
+    rng = np.random.default_rng(11)
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = [((33, 7), f32), ((130,), bf16), ((4, 5, 6), f32), ((1,), bf16),
+              ((5000,), f32), ((2048,), bf16), ((3, 1025), f32)]
+    for K in (1, 2, 5):
+        members = [_tree(rng, cuda, shapes) for _ in range(K)]
+        _grouped_held(members, rng.dirichlet([1.0] * K), 1)
+    # unaligned leaves: views 4 and 2 bytes past a boundary
+    members = []
+    for _ in range(3):
+        flat = torch.from_numpy(rng.normal(size=4100).astype(
+            np.float32)).to(cuda)
+        half = flat.to(bf16)
+        members.append([flat[1:1 + 4096], half[1:1 + 1000], flat[8:8 + 64]])
+    assert members[0][0].data_ptr() % 16 and members[0][1].data_ptr() % 16
+    _grouped_held(members, [0.2, 0.3, 0.5], 1)
+    from repro_torch import threefry
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cnn = build_model(get_config("flight-cnn-mnist")).init(threefry.key(0),
+                                                           cuda)
+    cnn_shapes = [(tuple(l.shape), l.dtype) for l in leaves(cnn)]
+    members = [_tree(rng, cuda, cnn_shapes) for _ in range(2)]
+    _grouped_held(members, [0.65, 0.35], 1)
+
+
+def test_fed_agg_grouped_capacity_edge(cuda):
+    """A tree of exactly capacity() slots is one launch; one member more
+    puts its last leaf into a second launch; a leaf with more members than
+    a launch holds carries an fp32 partial sum between launches in k order
+    and stays bit-equal."""
+    slots, parts = tkernel.capacity()
+    rng = np.random.default_rng(12)
+    L = 16
+    shapes = [((3 + 100 * l,), torch.float32 if l % 3 else torch.bfloat16)
+              for l in range(L)]
+    K = slots // L
+    members = [_tree(rng, cuda, shapes) for _ in range(K + 1)]
+    w = rng.dirichlet([1.0] * (K + 1))
+    _grouped_held(members[:K], w[:K] / w[:K].sum(), 1)
+    _grouped_held(members, w, 2)
+    big = [_tree(rng, cuda, [((2000,), torch.bfloat16), ((70,), torch.float32)])
+           for _ in range(slots + 5)]
+    wb = rng.dirichlet([1.0] * len(big))
+    _grouped_held(big, wb, 4)     # each leaf: 2,048 members, then 5
+    assert parts >= L and slots >= 2048
 
 
 def test_tree_merge_is_one_launch(cuda):
+    """A weighted average of 5 trees is one launch; one async_merge on
+    flight-cnn-mnist's tree runs exactly one CUDA kernel on the device and
+    no memcpy or memset (the weights go by value, no torch.cat)."""
+    from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(4)
     trees = [from_reference({"a": rng.normal(size=(33, 7)).astype(np.float32),
                              "b": rng.normal(size=(130,)).astype(np.float32)},
                             cuda) for _ in range(5)]
     w = np.full(5, 0.2)
-    before = tkernel.fed_agg_cuda.launches
+    before = tkernel.fed_agg_grouped_cuda.launches
     got = tagg.weighted_average(trees, w)
-    assert tkernel.fed_agg_cuda.launches == before + 1
+    assert tkernel.fed_agg_grouped_cuda.launches == before + 1
     want = tagg.weighted_average(trees, w, impl="ref")
     for g, x in zip(leaves(got), leaves(want)):
-        torch.testing.assert_close(g, x, rtol=1e-6, atol=1e-6)
+        assert torch.equal(g, x)
+    from repro_torch import threefry
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    model = build_model(get_config("flight-cnn-mnist"))
+    server, worker = (model.init(threefry.key(s), cuda) for s in (0, 1))
+    tagg.async_merge(server, worker, 0.3)          # warm: the library built
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        merged = tagg.async_merge(server, worker, 0.3)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.key for e in device]
+    assert sum(e.count for e in device) == 1, names      # no copy, no cat
+    assert "fed_agg_grouped" in names[0], names
+    host = [e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    # no copy to or from the card, no wait on a stream (the test's own
+    # torch.cuda.synchronize is a device synchronise, after the merge)
+    assert not any("memcpy" in n.lower() or "memset" in n.lower()
+                   or "streamsynchronize" in n.lower()
+                   or "eventsynchronize" in n.lower() for n in host), host
+    want = tagg.async_merge(server, worker, 0.3, impl="ref")
+    for g, x in zip(leaves(merged), leaves(want)):
+        assert torch.equal(g, x)
 
 
 def _rows(R, C, seed, cuda, dtype):
@@ -286,10 +393,11 @@ def test_quant8_grouped_kernels_refuse_bad_leaves(cuda):
                                                           before[1])
 
 
-def test_flat_q8_exchange_is_ten_launches_and_equals_plain(cuda):
+def test_flat_q8_exchange_is_two_launches_and_equals_plain(cuda):
     """The exchange workload at P = 2: 5 leaves in one grouped quantise
-    and one grouped dequantise (ten launches before the kernels took a
-    leaf list); the kernel exchange equals the plain one exactly."""
+    and one grouped dequantise, 1 + 1 launches (ten before the kernels
+    took a leaf list); the kernel exchange equals the plain one
+    exactly."""
     stacked, base = fl_exchange.make_tree(2, device=cuda)
     before = (q8kernel.quantize_grouped_cuda.launches,
               q8kernel.dequantize_grouped_cuda.launches)
@@ -495,54 +603,105 @@ def test_serve_loop_on_card_matches_solo(cuda):
 # linrec: (B, T, D) with odd T and D, with and without a starting state
 LINREC_SHAPES = [(1, 128, 128), (2, 512, 640), (3, 256, 512), (2, 1, 12),
                  (2, 77, 130), (1, 1000, 12), (4, 33, 4096)]
+# recurrentgemma-9b's and falcon-mamba-7b's prefill scans at B = 1, and a
+# falcon decode step
+LINREC_MAIN = [(1, 2048, 4096), (1, 2048, 8192 * 16), (1, 1, 8192 * 16)]
+
+
+def _linrec_routes(a, b):
+    """The routes the kernel can take these inputs on: column always, tma
+    where TMA can describe them."""
+    from repro_torch.kernels.linrec import kernel as lr
+    return ("column", "tma") if lr.tma_ok(a, b) else ("column",)
+
+
+def _linrec_held(a, b, h0):
+    """Both routes (where they take the inputs) equal ref.py bit for bit;
+    each launch counted on its route; -> the routes taken."""
+    from repro_torch.kernels.linrec import kernel as lr
+    from repro_torch.kernels.linrec.ref import linrec_ref
+    want = linrec_ref(a, b, h0)
+    routes = _linrec_routes(a, b)
+    for name in routes:
+        before = dict(lr.linrec_cuda.routes)
+        got = lr.linrec_cuda(a, b, h0, route_name=name)
+        torch.cuda.synchronize()
+        assert lr.linrec_cuda.routes[name] == before[name] + 1
+        assert got.dtype == torch.float32 and got.shape == a.shape
+        assert torch.equal(got, want), (name, tuple(a.shape), h0 is None)
+    return routes
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_linrec_kernel_equals_plain_version(cuda, dtype):
-    """One product and one sum a step, each rounded, in both: the kernel
-    equals ref.py bit for bit (test_kernels.py's 2e-4 / 3e-2 would do)."""
+    """One product and one sum a step, each rounded, in both: each route
+    of the kernel equals ref.py bit for bit (test_kernels.py's 2e-4 /
+    3e-2 would do), over odd shapes and the models' main shapes at B = 1,
+    from zeros and from an h0; ops.linrec takes the route kernel.route
+    picks."""
     from repro_torch.kernels.linrec import kernel as lr
     from repro_torch.kernels.linrec.ops import linrec
     g = torch.Generator(device=cuda).manual_seed(0)
-    for B, T, D in LINREC_SHAPES:
+    taken = set()
+    for B, T, D in LINREC_SHAPES + LINREC_MAIN:
         a = (0.7 + 0.299 * torch.rand(B, T, D, generator=g, device=cuda)
              ).to(dtype)
         b = (0.1 * torch.randn(B, T, D, generator=g, device=cuda)).to(dtype)
         for h0 in (None, torch.randn(B, D, generator=g, device=cuda)):
-            before = lr.linrec_cuda.launches
+            taken.update(_linrec_held(a, b, h0))
+            before = dict(lr.linrec_cuda.routes)
             got = linrec(a, b, h0)
-            want = linrec(a, b, h0, impl="ref")
-            torch.cuda.synchronize()
-            assert lr.linrec_cuda.launches == before + 1
-            assert got.dtype == torch.float32 and got.shape == (B, T, D)
-            assert torch.equal(got, want), (B, T, D, h0 is None)
+            want = lr.route(a, b)
+            assert lr.linrec_cuda.routes[want] == before[want] + 1
+            assert torch.equal(got, linrec(a, b, h0, impl="ref"))
+    assert taken == {"column", "tma"}
+    for B, T, D in LINREC_MAIN[:2]:
+        a = torch.empty(B, T, D, device=cuda, dtype=dtype)
+        assert lr.route(a, a) == "tma"
+    assert lr.route(*(torch.empty(LINREC_MAIN[2], device=cuda),) * 2) \
+        == "column"
 
 
 def test_linrec_kernel_takes_strided_views(cuda):
     """a and b as views along batch and time (d contiguous): read through
-    their strides, as the (B, T, di, N) -> (B, T, di * N) view is."""
+    their strides, as the (B, T, di, N) -> (B, T, di * N) view is; on the
+    tma route where the strides are multiples of 16 bytes, on the column
+    route where they are not."""
     from repro_torch.kernels.linrec import kernel as lr
-    from repro_torch.kernels.linrec.ref import linrec_ref
     g = torch.Generator(device=cuda).manual_seed(1)
     ab = torch.rand(3, 50, 2, 40, generator=g, device=cuda)
     a, b = ab[:, :, 0], ab[:, :, 1]                     # (3, 50, 40) views
     assert not a.is_contiguous()
-    got = lr.linrec_cuda(a, b)
-    torch.cuda.synchronize()
-    assert torch.equal(got, linrec_ref(a, b))
+    assert _linrec_held(a, b, None) == ("column", "tma")
+    ab = torch.rand(2, 300, 2, 1024, generator=g, device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        c = ab.to(dtype)
+        a, b = c[:, :, 0], c[:, :, 1]
+        assert lr.route(a, b) == "tma"
+        _linrec_held(a, b, torch.randn(2, 1024, generator=g, device=cuda))
+    odd = torch.rand(2, 64, 2, 130, generator=g, device=cuda)
+    assert _linrec_held(odd[:, :, 0], odd[:, :, 1], None) == ("column",)
 
 
 def test_linrec_kernel_rejects_what_it_does_not_take(cuda):
+    """Bad dtypes, a non-contiguous d, a wrong h0, an unknown route, and
+    the tma route on a layout TMA cannot describe: each refused, nothing
+    counted."""
     from repro_torch.kernels.linrec import kernel as lr
     a = torch.rand(2, 8, 16, device=cuda)
-    before = lr.linrec_cuda.launches
+    before = lr.linrec_cuda.launches, dict(lr.linrec_cuda.routes)
     with pytest.raises(TypeError):
         lr.linrec_cuda(a, a.half())
     with pytest.raises(ValueError, match="contiguous"):
         lr.linrec_cuda(a.transpose(1, 2), a.transpose(1, 2))
     with pytest.raises(ValueError, match="h0"):
         lr.linrec_cuda(a, a, torch.zeros(2, 15, device=cuda))
-    assert lr.linrec_cuda.launches == before
+    with pytest.raises(ValueError, match="route"):
+        lr.linrec_cuda(a, a, route_name="pallas")
+    odd = torch.rand(2, 64, 130, device=cuda)
+    with pytest.raises(RuntimeError, match="tma"):
+        lr.linrec_cuda(odd, odd, route_name="tma")
+    assert (lr.linrec_cuda.launches, lr.linrec_cuda.routes) == before
 
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
@@ -563,8 +722,10 @@ def test_one_linrec_launch_per_recurrent_layer(cuda, arch):
     else:
         n_super, n_tail = hybrid_counts(model.cfg)
         n_rec, n_attn = 2 * n_super + n_tail, n_super
-    toks = torch.randint(0, model.cfg.vocab_size, (2, 37), device=cuda,
-                         dtype=torch.int32)
+    # its own generator: the same tokens whatever ran before
+    g = torch.Generator(device=cuda).manual_seed(0)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 37), generator=g,
+                         device=cuda, dtype=torch.int32)
     lr0, fa0 = lr.linrec_cuda.launches, fa.flash_attention_cuda.launches
     with torch.no_grad():
         logits, cache = model.apply(params, {"tokens": toks}, mode="prefill")

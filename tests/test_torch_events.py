@@ -25,7 +25,7 @@ from repro_torch.core import cost_model as tcm
 from repro_torch.core import events as tevents
 from repro_torch.core import server as tserver
 from repro_torch.examples import quickstart
-from repro_torch.kernels.fed_agg.kernel import fed_agg_cuda
+from repro_torch.kernels.fed_agg.kernel import fed_agg_grouped_cuda
 from repro_torch.models import build_model
 from repro_torch.models.param import from_reference
 
@@ -168,9 +168,9 @@ def test_quickstart_runs_on_cpu_and_matches_jax():
     """The port's entry point from the same seed as the JAX quickstart:
     the same initial params (to a few ulp), the same batch orders and the
     same timing draws, so the first merges agree record for record."""
-    before = fed_agg_cuda.launches
+    before = fed_agg_grouped_cuda.launches
     tres = quickstart.run("cpu", max_merges=12)
-    assert fed_agg_cuda.launches == before       # host tensors: plain version
+    assert fed_agg_grouped_cuda.launches == before   # host tensors: plain version
     assert tres.records[-1].round == 12
     assert all(r.n_selected <= 1 for r in tres.records[1:])
     _assert_records_match(jax_quickstart(0).run_async(max_merges=12), tres)

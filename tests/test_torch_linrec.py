@@ -125,3 +125,91 @@ def test_plain_version_is_the_step_loop():
         h = a[:, t].float() * h + b[:, t].float()
         assert torch.equal(got[:, t], h)
     assert torch.equal(h0, h0_copy)
+
+
+# -- the kernel's route, from layout alone (no launch) -----------------------
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(*shape, dtype=dtype, device="meta")
+
+
+def _scan_shapes():
+    """(B, T, D) of every model scan: falcon-mamba-7b's (d_inner x N) and
+    recurrentgemma-9b's (lru_width) prefills at the full-width batches and
+    at their smoke configs."""
+    from repro_torch.configs import get_config, get_smoke_config
+    out = []
+    for get, B in ((get_config, None), (get_smoke_config, 2)):
+        falcon, rg = get("falcon-mamba-7b"), get("recurrentgemma-9b")
+        out.append((B or 4, 2048, falcon.d_inner * falcon.ssm_state))
+        out.append((B or 2, 2048, rg.lru_width))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_route_takes_tma_for_the_models_scans(dtype):
+    """The models' contiguous scans and their strided (B, T, di * N) views
+    (a and b as halves of one buffer) take the pipelined TMA kernel."""
+    shapes = _scan_shapes()
+    assert (4, 2048, 131_072) in shapes and (2, 2048, 4096) in shapes
+    for B, T, D in shapes:
+        a = _meta(B, T, D, dtype=dtype)
+        assert tkernel.tma_ok(a, a) and tkernel.route(a, a) == "tma"
+        ab = _meta(B, T, 2, D, dtype=dtype)
+        a, b = ab[:, :, 0], ab[:, :, 1]
+        assert not a.is_contiguous()
+        assert tkernel.route(a, b) == "tma", (B, T, D)
+    # a decode step's own tensors (T = 1) are TMA's to take, but a tile of
+    # 32 steps would be padding: the column kernel takes them
+    a = _meta(4, 1, 131_072)
+    assert tkernel.tma_ok(a, a) and tkernel.route(a, a) == "column"
+
+
+def test_route_takes_column_for_other_layouts():
+    """D = 12 and 130 (test_kernels.py's odd widths), T shorter than a
+    tile, unaligned bases and strides that are no multiple of 16 bytes
+    take the column kernel; those TMA cannot describe fail tma_ok."""
+    cases = {
+        "D=12": (_meta(2, 77, 12), True),           # narrower than a strip
+        "D=130": (_meta(1, 1000, 130), False),      # 520-byte rows
+        "T=31": (_meta(2, 31, 4096), True),
+        "bf16 D=36": (_meta(2, 64, 36, dtype=torch.bfloat16), False),
+        "unaligned": (_meta(2 * 64 * 128 + 1)[1:].view(2, 64, 128), False),
+        "odd time stride": (_meta(2, 64, 129)[..., :128], False),
+    }
+    for label, (a, capable) in cases.items():
+        assert tkernel.tma_ok(a, a) == capable, label
+        assert tkernel.route(a, a) == "column", label
+    a = _meta(2, 64, 128)
+    assert tkernel.route(a, _meta(2 * 64 * 128 + 4)[4:].view(2, 64, 128)) \
+        == "tma"                                      # 16 bytes in: aligned
+    assert tkernel.route(a, _meta(2 * 64 * 128 + 2)[2:].view(2, 64, 128)) \
+        == "column"                                   # 8 bytes in
+
+
+def test_cuda_entry_refuses_host_tensors_on_either_route():
+    (_, _), (a, b) = _ab(2, 40, 64, "float32")
+    before = dict(tkernel.linrec_cuda.routes)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tkernel.linrec_cuda(a, b, route_name="tma")
+    assert tkernel.linrec_cuda.routes == before
+    assert tkernel.ROUTES == ("column", "tma")
+
+
+def test_smoke_logits_draws_runs_on_the_host(capsys, monkeypatch):
+    """examples/smoke_logits_draws.py on the CPU, where both paths are the
+    plain versions: every gap is 0 and every scan repeats its bits."""
+    import json
+    import sys
+
+    from repro_torch.examples import smoke_logits_draws
+    monkeypatch.setattr(sys, "argv", [
+        "smoke_logits_draws", "--device", "cpu", "--draws", "2",
+        "--repeat-draws", "1", "--repeats", "1"])
+    assert smoke_logits_draws.main() == 0
+    report = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert report["device"] == "cpu" and report["unequal_scans"] == 0
+    assert report["scans"] > 0
+    for arch in smoke_logits_draws.ARCHS:
+        assert report["archs"][arch] == {"draws": 2, "worst": 0.0,
+                                         "outside_tolerance": []}
