@@ -11,9 +11,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      dtype as groups of one leaf, with its time, the plain version's, one
      torch.einsum call's (a yardstick the port never calls) and the least
      time the card could take; then the grouped launch over whole trees
-     (the async merge and a sync round over flight-cnn-mnist's 6 leaves, a
-     mixed fp32 / bf16 tree, K = 1, a tree at a launch's capacity and one
-     member past it, which must be 2 launches), and the async merge timed
+     (the async merge and a sync round over flight-cnn-mnist's 6 leaves,
+     the paper suite's MLP at K = 10 and 2, the resume fleet's MLP at
+     K = 5, the overhead bench's 10 x 2^20 and 8 x 2^18, a mixed fp32 /
+     bf16 tree, K = 1, a tree at a launch's capacity and one member past
+     it, which must be 2 launches), and the async merge timed
      beside an empty kernel (the launch floor) and as
      aggregation.async_merge's Python call;
   4. the quickstart path: the port's quickstart on the card (Alg. 2, async,
@@ -26,7 +28,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      2-cell fog tier (params within 1e-6), and the 3 rounds through the
      fog tier (accuracy within 0.01 of the flat run), 1 and 3 launches a
      round;
-  5. hold the grouped quant8 kernels (quantise, dequantise; one launch
+  5. the paper's experiment suite: repro_torch.examples.paper.run's main
+     with fig12-fig18 and FedOpt at seed 0 (21 simulations; each summary
+     line and each figure's wall time printed, the CSV written to
+     artifacts/paper_suite_seed0.csv), which must launch fed_agg once per
+     merge (sync rounds plus async merges, read from the records' server
+     versions); the overhead bench's rows (fed_agg and quant8 on the card)
+     beside the card's name and power limit; then fig18 at seeds 1-7, whose
+     medians of the selection and async gains over seeds 0-7 must lie within
+     FIG18_TOL of the JAX harness's medians (JAX_FIG18);
+  6. crash-safe resume: the resume fleet (examples/resume.py, the JAX
+     package's tests/test_resume.py run) killed at sync round 2 and at
+     async merge 4, then resumed from its checkpoint: killed + resumed
+     must equal the uninterrupted run's records and final params exactly,
+     one fed_agg launch a merge;
+  7. hold the grouped quant8 kernels (quantise, dequantise; one launch
      over a list of leaves) against their plain version, bit for bit:
      over C x rows x dtype with NaN/inf rows as groups of one, with their
      times, the plain version's, one `q * scale` call's and the bound;
@@ -39,7 +55,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      calls), warm (inputs in L2) and cold (L2 flushed first), in CUDA-graph
      and Python-call time, beside the bound, and the same at granite-20b's
      int8 K/V cache shape (bf16);
-  6. the exchange path: examples/fl_exchange at P = 2, 4, 8 in the modes
+  8. the exchange path: examples/fl_exchange at P = 2, 4, 8 in the modes
      f32, q8, topk and q8_topk, flat and two-tier, through the kernels and
      through the plain version (equal outputs; wire MB equal to the JAX
      benchmark's BENCH_exchange.json); one q8 exchange must be 2 quant8
@@ -47,7 +63,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      hop), a plain one 0; then 4 islands of flight-cnn-mnist, 3 rounds of
      one local epoch and a q8 exchange through 2 fog cells, through the
      kernels and the plain version, which must give equal final params;
-  7. hold flash_attention against its plain version over
+  9. hold flash_attention against its plain version over
      tests/test_kernels.py's shapes, odd T (1, 77, 1,000, 4,097), D = 8,
      12, 16, 200, 256, windows off the tile grid, non-causal, fp32 and
      bf16 (3e-4 / 3e-2), and strided views on the mma.sync and FMA routes,
@@ -56,7 +72,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      and recurrentgemma-9b's full-width prefill shapes beside the bound,
      the plain version and one scaled_dot_product_attention call (a
      yardstick the port never calls);
-  8. the LM serving path at granite-20b's full width (20.32 B params,
+  10. the LM serving path at granite-20b's full width (20.32 B params,
      bf16, drawn on the card): `python -m repro_torch.launch.serve --full
      --batch 8 --prompt-len 2048 --gen 32` through its main, which must
      launch flash_attention once per layer (52), all on the wgmma route;
@@ -64,12 +80,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      prefilled through the kernel, each layer's attention held against the
      plain version on the same q/k/v (3e-2), and again through the plain
      version: last-position logits within 2e-2 scale-relative;
-  9. the continuous-batching ServeLoop at full width (4 slots, 4,096
+  11. the continuous-batching ServeLoop at full width (4 slots, 4,096
      positions) draining 8 requests of 1 to 2,047 prompt tokens, 16 new
      tokens each: one flash launch per layer per admitted prefill, each
      first token equal to its solo prefill's; token agreement with solo
      generation is reported;
-  10. hold linrec against its plain version, bit for bit, over
+  12. hold linrec against its plain version, bit for bit, over
      tests/test_kernels.py's shapes, odd T (1, 77, 1,000) and odd D (12,
      130), with and without a starting state, fp32 and bf16, on each route
      that takes the shape (column always, tma where TMA can describe it),
@@ -77,7 +93,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      recurrent models' prefill scans and a falcon decode step, in turns
      (the median of three readings a route), beside the bound and the plain version (no single PyTorch call
      computes it);
-  11. falcon-mamba-7b at full width (7.27 B params, bf16, drawn on the
+  13. falcon-mamba-7b at full width (7.27 B params, bf16, drawn on the
      card): `python -m repro_torch.launch.serve --arch falcon-mamba-7b
      --full --batch 4 --prompt-len 2048 --gen 32` through its main, which
      must launch linrec once per layer in the prefill (64, all on the tma
@@ -85,28 +101,31 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      kernel, each layer's scan held against the plain version on the same
      a, b (2e-4), and again through the plain version: last-position
      logits within 2e-2 scale-relative;
-  12. falcon-mamba-7b in a full-width ServeLoop (4 slots) draining 8
+  14. falcon-mamba-7b in a full-width ServeLoop (4 slots) draining 8
      requests of 3 to 2,047 prompt tokens, 16 new tokens each: one linrec
      launch per layer per admitted prefill and per decode step, each first
      token equal to its solo prefill's; agreement with solo generation is
      reported;
-  13. recurrentgemma-9b at full width (10.44 B params): `serve.py --arch
+  15. recurrentgemma-9b at full width (10.44 B params): `serve.py --arch
      recurrentgemma-9b --full --batch 2 --prompt-len 2048 --gen 32`, 26
      linrec and 12 flash launches (wgmma route) in the prefill and 26 linrec launches a
      decode step; then its 2 x 2,048 prefill's attention and scans held
      layer by layer against the plain versions, and its last-position
      logits against the plain run's: within 3.5e-2 (see LM_LOGITS_TOL);
-  14. print the kernel table as JSON, then the result line.
+  16. print the kernel table as JSON, then the result line.
 
 Each model is freed before the next one is drawn (40.6, 14.6, then 20.9
 GB of weights).
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -133,6 +152,22 @@ MAIN_SHAPE = (2, 20_490, "float32")   # async merge of flight-cnn-mnist
 # weighted mean re-associated, fp32 rounding apart; a wrong cell weighting
 # moves it by the responses' spread, about 1e-2 here
 FOG_FOLD_TOL = 1e-6
+# the paper suite (repro_torch.examples.paper.run) at seed 0; the overhead
+# bench runs after it, apart, so the figures' fed_agg launches are counted
+# alone
+PAPER_FIGURES = "fig12,fig13,fig14,fig15,fig16,fig17,fig18,fedopt"
+PAPER_SIMS = 21             # simulations the figures run: 2+2+2+2+4+3+3+3
+# fig18's (selection_gain, async_gain) of the JAX harness (benchmarks/
+# fig18_async.py) on the CPU, per seed, as printed by
+# `PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_paper.py`.
+# Medians over the eight seeds are held; their tolerance is twice the
+# largest shift of the JAX median when every initial param moves one ulp
+# up or down (selection 0.0404, async 0.0119; PERF.md section 6).
+JAX_FIG18 = {0: (-0.022147, 0.187297), 1: (-0.722277, 0.121167),
+             2: (-2.425807, 0.033330), 3: (-2.215897, 0.288759),
+             4: (-0.317154, 0.197151), 5: (-1.222383, -0.052547),
+             6: (-0.872593, 0.057101), 7: (-1.317599, 0.002766)}
+FIG18_TOL = {"selection_gain": 0.0807, "async_gain": 0.0238}
 # quant8 sweep: row width C (5: odd; 256: the exchange's matrices; 1027:
 # its bias; 4096; 151,936: an LM head's vocabulary row) x total elements
 Q8_WIDTHS = (5, 256, 1027, 4096, 151_936)
@@ -284,14 +319,20 @@ def kernel_sweep(torch, np):
 def fed_agg_tree_sweep(torch, np):
     """The grouped kernel on the main path's merges, held bit for bit
     against the plain version and timed: the async merge (K = 2) and a
-    sync round (K = 5) over flight-cnn-mnist's 6 leaves, a mixed fp32 /
-    bf16 tree, and a tree past a launch's capacity (its launches counted);
-    beside them an empty kernel's graph time, the launch floor, and the
-    async merge as the server calls it (`aggregation.async_merge`) in
-    Python-call time.  -> the async merge's record."""
+    sync round (K = 5) over flight-cnn-mnist's 6 leaves; the paper suite's
+    merges over its MLP's 4 leaves (fig12's all-worker sync round, K = 10;
+    fig18's async merge, K = 2), the resume fleet's sync round over its
+    MLP (K = 5) and the overhead bench's two aggregations (10 x 2^20 and
+    8 x 2^18 fp32); a mixed fp32 / bf16 tree, and a tree past a launch's
+    capacity (its launches counted); beside them an empty kernel's graph
+    time, the launch floor, and the async merge as the server calls it
+    (`aggregation.async_merge`) in Python-call time.  -> the async merge's
+    record."""
     from repro_torch import threefry
     from repro_torch.configs import get_config
     from repro_torch.core import aggregation
+    from repro_torch.examples import resume
+    from repro_torch.examples.paper import common
     from repro_torch.kernels.fed_agg import kernel as fa
     from repro_torch.kernels.fed_agg.ref import (fed_agg_2d_ref,
                                                  fed_agg_grouped_ref)
@@ -300,7 +341,13 @@ def fed_agg_tree_sweep(torch, np):
     rng = np.random.default_rng(1)
     model = build_model(get_config("flight-cnn-mnist"))
     cnn = model.init(threefry.key(0), torch.device("cuda"))
-    shapes = [(tuple(l.shape), l.dtype) for l in leaves(cnn)]
+
+    def leaf_shapes(tree):
+        return [(tuple(l.shape), l.dtype) for l in leaves(tree)]
+    shapes = leaf_shapes(cnn)
+    paper_mlp, resume_mlp = (leaf_shapes(build_model(cfg).init(
+        threefry.key(0), torch.device("cuda"))) for cfg in (common.MLP,
+                                                           resume.MLP))
     mixed = [((33, 7), torch.float32), ((130,), torch.bfloat16),
              ((4, 5, 6), torch.float32), ((2048,), torch.bfloat16),
              ((3, 1025), torch.float32)]
@@ -328,6 +375,13 @@ def fed_agg_tree_sweep(torch, np):
     slots, parts = fa.capacity()
     cases = [("async merge, flight-cnn-mnist", members(2, shapes), 1),
              ("sync round, flight-cnn-mnist", members(5, shapes), 1),
+             ("fig12 sync round, paper MLP", members(10, paper_mlp), 1),
+             ("fig18 async merge, paper MLP", members(2, paper_mlp), 1),
+             ("resume sync round, its MLP", members(5, resume_mlp), 1),
+             ("overhead aggregation, 10 x 2^20",
+              members(10, [((1 << 20,), torch.float32)]), 1),
+             ("overhead fed_agg, 8 x 2^18",
+              members(8, [((1 << 18,), torch.float32)]), 1),
              ("mixed fp32/bf16 tree", members(3, mixed), 1),
              ("K = 1", members(1, mixed), 1),
              (f"capacity edge ({slots} slots)",
@@ -1064,6 +1118,116 @@ def linrec_sweep(torch):
     return recs
 
 
+def paper_suite(torch, card: str) -> dict:
+    """The paper's figures and FedOpt at seed 0 through the suite's entry
+    point (CSV to artifacts/paper_suite_seed0.csv), one fed_agg launch
+    per merge; overhead's rows; fig18 at seeds 0-7 against the JAX
+    harness's medians.  -> {"figures": fed_agg launches of the figures,
+    "overhead": quant8 / fed_agg launches of the overhead bench}."""
+    from repro_torch.examples.paper import fig18_async
+    from repro_torch.examples.paper import run as paper_run
+    from repro_torch.examples.paper.common import recorded_results
+    from repro_torch.kernels.fed_agg import kernel
+    from repro_torch.kernels.quant8 import kernel as q8
+    from repro_torch.tree import leaves
+    csv = io.StringIO()
+    kernel.fed_agg_grouped_cuda.launches = 0
+    with recorded_results() as results, contextlib.redirect_stdout(csv):
+        suite = paper_run.main(["--only", PAPER_FIGURES, "--seed", "0"])
+    torch.cuda.synchronize()
+    launches = kernel.fed_agg_grouped_cuda.launches
+    out_dir = ROOT / "artifacts"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "paper_suite_seed0.csv").write_text(csv.getvalue())
+    for line in csv.getvalue().splitlines():
+        if line.startswith(("summary,", "best,", "policy,")):
+            print(line)
+    for name, (_, wall) in suite.items():
+        print(f"paper suite {name}: {wall:.3f} s wall ({card})")
+    check(len(results) == PAPER_SIMS,
+          f"the suite ran {len(results)} simulations, {PAPER_SIMS} expected")
+    for res in results:
+        check(len(res.records) > 1 and not res.crashed,
+              "a suite simulation recorded nothing or crashed")
+        check(all(0.0 <= r.acc <= 1.0 for r in res.records),
+              "accuracy outside [0, 1]")
+        for leaf in leaves(res.final_params):
+            check(bool(torch.isfinite(leaf).all()),
+                  "non-finite final params in the suite")
+    merges = sum(res.records[-1].version for res in results)
+    print(f"paper suite: {sum(w for _, w in suite.values()):.2f} s wall, "
+          f"{len(results)} simulations, {merges} merges, {launches} fed_agg "
+          f"launches", flush=True)
+    check(launches == merges, f"the suite made {launches} fed_agg launches "
+          f"in {merges} merges; one a merge expected")
+
+    rows = io.StringIO()
+    q8.quantize_grouped_cuda.launches = 0
+    kernel.fed_agg_grouped_cuda.launches = 0
+    with contextlib.redirect_stdout(rows):
+        paper_run.main(["--only", "overhead", "--seed", "0"])
+    overhead_launches = {"quant8_quantize": q8.quantize_grouped_cuda.launches,
+                         "fed_agg": kernel.fed_agg_grouped_cuda.launches}
+    lines = [l for l in rows.getvalue().splitlines()
+             if l.count(",") == 2 and not l.startswith("bench.")]
+    for line in lines:
+        print(f"overhead ({card}): {line}")
+    check(any(l.startswith("kernel.fed_agg") and l.endswith(",cuda")
+              for l in lines), "overhead's fed_agg row did not run on cuda")
+    check(min(overhead_launches.values()) > 0,
+          f"overhead launched {overhead_launches}: quant8 and fed_agg "
+          "expected")
+    print(f"overhead launches: {overhead_launches}", flush=True)
+
+    gains = {0: suite["fig18"][0]}
+    for seed in sorted(JAX_FIG18)[1:]:
+        with contextlib.redirect_stdout(io.StringIO()):
+            gains[seed] = fig18_async.main(seed=seed)
+    for seed, g in gains.items():
+        print(f"fig18 seed {seed}: selection_gain {g['selection_gain']:.6f} "
+              f"async_gain {g['async_gain']:.6f} (JAX "
+              f"{JAX_FIG18[seed][0]:.6f} {JAX_FIG18[seed][1]:.6f})")
+    for i, metric in enumerate(("selection_gain", "async_gain")):
+        port_med = statistics.median(g[metric] for g in gains.values())
+        jax_med = statistics.median(v[i] for v in JAX_FIG18.values())
+        print(f"fig18 median {metric} over seeds 0-7: port {port_med:.6f}, "
+              f"JAX {jax_med:.6f} (tolerance {FIG18_TOL[metric]})",
+              flush=True)
+        check(abs(port_med - jax_med) <= FIG18_TOL[metric],
+              f"fig18 median {metric} {port_med} outside "
+              f"{jax_med}+-{FIG18_TOL[metric]}")
+    return {"figures": launches, "overhead": overhead_launches}
+
+
+def resume_path(torch) -> int:
+    """The resume fleet killed at sync round 2 / async merge 4 and resumed
+    from its checkpoint on the card: killed + resumed must equal the
+    uninterrupted run, records and params exactly, one fed_agg launch a
+    merge.  -> fed_agg launches."""
+    from repro_torch.examples import resume
+    from repro_torch.kernels.fed_agg import kernel
+    total = 0
+    with tempfile.TemporaryDirectory() as d:
+        for mode in ("sync", "async"):
+            kernel.fed_agg_grouped_cuda.launches = 0
+            ref, killed, resumed, merges = resume.crash_and_resume(
+                mode, d, "cuda")
+            torch.cuda.synchronize()
+            launches = kernel.fed_agg_grouped_cuda.launches
+            total += launches
+            check(resume.holds(ref, killed, resumed),
+                  f"{mode} resume differs from the uninterrupted run")
+            check(launches == merges, f"{mode} resume: {launches} fed_agg "
+                  f"launches in {merges} merges")
+            print(f"resume {mode}: killed after {len(killed.records)} "
+                  f"records at {'round' if mode == 'sync' else 'merge'} "
+                  f"{resume.CRASH_AT[mode]}, resumed {len(resumed.records)}"
+                  f": equal to the uninterrupted {len(ref.records)} records "
+                  f"and its final params bit for bit; {launches} fed_agg "
+                  f"launches in {merges} merges", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1083,7 +1247,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     resolve_device("cuda")   # TF32 off, cuDNN deterministic (runtime.py)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
@@ -1206,12 +1371,18 @@ def main() -> int:
           f"final params max |diff| {fog_gap:.3g} from the flat run, "
           f"{nf / rounds:.0f} fed_agg launches per round", flush=True)
 
-    # 5. quant8 kernels vs plain version (launches here are not the path's)
+    # 5. the paper's experiment suite on the card, counted from zero
+    paper_launches = paper_suite(torch, card)
+
+    # 6. crash-safe resume on the card, counted from zero
+    resume_launches = resume_path(torch)
+
+    # 7. quant8 kernels vs plain version (launches here are not the path's)
     q8_rows = quant8_sweep(torch)
     quant8_mixed_lists(torch)
     q8_main = quant8_exchange_shapes(torch)
 
-    # 6. the exchange path, counted from zero: the entry point at P = 2,
+    # 8. the exchange path, counted from zero: the entry point at P = 2,
     #    4, 8 x 4 modes, flat and two-tier, and the paper's model on islands
     q8.quantize_grouped_cuda.launches = q8.dequantize_grouped_cuda.launches = 0
     t0 = time.perf_counter()
@@ -1263,36 +1434,36 @@ def main() -> int:
           f"accuracy {accs_k} through the kernels, {accs_r} plain; final "
           f"params max |diff| {island_gap}", flush=True)
 
-    # 7. flash_attention vs plain version (launches here are not the path's)
+    # 9. flash_attention vs plain version (launches here are not the path's)
     fa_recs = flash_sweep(torch)
     fa_main = fa_recs[LM_ARCH]
 
-    # 8. the LM serving path at full width, counted from zero
+    # 10. the LM serving path at full width, counted from zero
     res, lm_launches, lm_peak = lm_serve(torch, LM_ARCH, LM_BATCH)
     model, params = res["model"], res["params"]
     del res
     lm_kernel_vs_plain(torch, model, params)
 
-    # 9. continuous batching at full width, counted from zero
+    # 11. continuous batching at full width, counted from zero
     loop_launches = lm_serve_loop(torch, model, params, LOOP_LENGTHS)
     del model, params
     torch.cuda.empty_cache()
 
-    # 10. linrec vs plain version (launches here are not the path's)
+    # 12. linrec vs plain version (launches here are not the path's)
     lr_main = linrec_sweep(torch)
 
-    # 11. falcon-mamba-7b at full width, counted from zero
+    # 13. falcon-mamba-7b at full width, counted from zero
     res, ssm_launches, ssm_peak = lm_serve(torch, SSM_ARCH, SSM_BATCH)
     model, params = res["model"], res["params"]
     del res
     lm_kernel_vs_plain(torch, model, params)
 
-    # 12. falcon-mamba-7b in the ServeLoop, counted from zero
+    # 14. falcon-mamba-7b in the ServeLoop, counted from zero
     ssm_loop_launches = lm_serve_loop(torch, model, params, SSM_LOOP_LENGTHS)
     del model, params
     torch.cuda.empty_cache()
 
-    # 13. recurrentgemma-9b at full width, counted from zero
+    # 15. recurrentgemma-9b at full width, counted from zero
     res, hybrid_launches, hybrid_peak = lm_serve(torch, HYBRID_ARCH,
                                                  HYBRID_BATCH)
     model, params = res["model"], res["params"]
@@ -1301,7 +1472,7 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
 
-    # 14. results
+    # 16. results
     # fed_agg on its main path: one grouped launch over the async merge's
     # tree; library_ms is one einsum over the same elements as a (2, N)
     # stack (the sweep's (2, 20,490) row), which no tree call has
@@ -1311,7 +1482,12 @@ def main() -> int:
         "name": "fed_agg", "route": "cuda",
         "source": "src/repro_torch/kernels/fed_agg/csrc/fed_agg.cu",
         "replaces": "src/repro/kernels/fed_agg/kernel.py:40",
-        "launches": launches, "max_abs_err": fa_merge["max_abs_err"],
+        # every merge path's launches: each counted from zero around it
+        "launches": launches + paper_launches["figures"] + resume_launches,
+        "launches_by_path": {"quickstart": launches,
+                             "paper_suite": paper_launches["figures"],
+                             "resume": resume_launches},
+        "max_abs_err": fa_merge["max_abs_err"],
         "ms": fa_merge["ms"], "plain_ms": fa_merge["plain_ms"],
         "bound_ms": fa_merge["bound_ms"], "bound_by": fa_merge["bound_by"],
         "library_ms": main_row["library_ms"],
@@ -1326,6 +1502,9 @@ def main() -> int:
             "source": "src/repro_torch/kernels/quant8/csrc/quant8.cu",
             "replaces": f"src/repro/kernels/quant8/kernel.py:{line}",
             "launches": q8_launches[name], "max_abs_err": t["max_abs_err"],
+            **({"overhead_launches":
+                paper_launches["overhead"]["quant8_quantize"]}
+               if name == "quantize" else {}),
             "ms": t["grouped_cold_ms"], "plain_ms": t["plain_cold_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_cold_ms"],

@@ -1,0 +1,2 @@
+from repro_torch.checkpoint.manager import (CheckpointManager, load_pytree,
+                                            save_pytree)

@@ -24,17 +24,27 @@ the wire (Byzantine attacks), drops / duplicates responses, crash-restarts
 workers, and kills the aggregation server mid-round -- every decision the
 reference's, draw for draw.  Rejected/diverged updates feed the server's
 quarantine counters; async rejections go through the server's bounded
-retry/backoff policy.  Checkpointed resume (`ckpt=`) is not ported yet.
+retry/backoff policy.
+
+Crash-safe resume: with a `checkpoint.CheckpointManager` attached
+(`ckpt=`), the FULL simulation state (server model + control plane, the
+numpy stream and the Threefry key, sim clock, and for async the in-flight
+response heap including trained params) is checkpointed at round
+granularity, in the reference's format.  A killed run resumed from the
+latest checkpoint (`resume=True`) replays the interrupted round and
+produces a SimRecord stream bit-identical to an uninterrupted run.
 """
 from __future__ import annotations
 
 import dataclasses
 import heapq
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch import threefry
+from repro_torch.checkpoint.manager import load_pytree
 from repro_torch.core.client import SimWorker, draw_orders
 from repro_torch.core.server import AggregationServer
 from repro_torch.tree import leaves, tree_map
@@ -53,7 +63,7 @@ class SimRecord:
 class SimResult:
     records: list[SimRecord]
     final_params: object = None
-    crashed: bool = False         # server killed mid-round (a FaultPlan)
+    crashed: bool = False         # server killed mid-round (resume to finish)
 
     def time_to_accuracy(self, target: float) -> float:
         for r in self.records:
@@ -78,9 +88,6 @@ class FLSimulation:
                  idle_tick: float = 0.2, time_noise: float = 0.05,
                  seed: int = 0, cohort: bool = True, faults=None,
                  ckpt=None, ckpt_every: int = 1):
-        if ckpt is not None:
-            raise NotImplementedError("ckpt= needs checkpoint/manager, not "
-                                      "ported yet")
         self.server = server
         self.workers = workers
         device = leaves(server.params)[0].device
@@ -97,6 +104,7 @@ class FLSimulation:
         # (client.LocalTrainer.train_cohort) instead of a Python loop.
         self.cohort = cohort
         self.faults = faults          # Optional faults.FaultPlan
+        self.ckpt = ckpt              # Optional checkpoint.CheckpointManager
         self.ckpt_every = max(int(ckpt_every), 1)
         trainer = next(iter(workers.values())).trainer
         self._eval = lambda p: trainer.evaluate(p, self.test_images,
@@ -114,6 +122,86 @@ class FLSimulation:
     def _next_order(self, w: SimWorker, epochs: int) -> torch.Tensor:
         self.key, k = threefry.split(self.key)
         return draw_orders(k, int(w.images.shape[0]), int(epochs))
+
+    # -- crash-safe state ---------------------------------------------
+    def _save_state(self, kind: str, step: int, t: float, last_acc: float,
+                    *, heap=(), seq: int = 0, merges: int = 0,
+                    rejects: Optional[dict] = None):
+        if self.ckpt is None:
+            return
+        srv = self.server
+        state = {"key": self.key}
+        if srv._sopt_state.momentum is not None:
+            state["sopt_m"] = srv._sopt_state.momentum
+        if srv._sopt_state.variance is not None:
+            state["sopt_v"] = srv._sopt_state.variance
+        heap_meta = []
+        for i, (t_fin, s, wid, params, base_version, dup) in \
+                enumerate(sorted(heap)):
+            state[f"h{i}"] = params
+            heap_meta.append({"t_fin": t_fin, "seq": s, "wid": wid,
+                              "base_version": base_version, "dup": dup})
+        extra = {"kind": kind, "step": int(step), "t": float(t),
+                 "last_acc": float(last_acc),
+                 "rng_state": self.rng.bit_generator.state,
+                 "server": srv.state_dict(),
+                 "heap_meta": heap_meta, "seq": int(seq),
+                 "merges": int(merges),
+                 "rejects": {str(k): int(v)
+                             for k, v in (rejects or {}).items()}}
+        self.ckpt.save(step, params=srv.params, opt_state=state, extra=extra)
+
+    def _restore_state(self, kind: str) -> dict:
+        """Load the latest checkpoint into the server and the streams; the
+        restored tensors take the server params' device and dtypes."""
+        srv = self.server
+        device = leaves(srv.params)[0].device
+        step, params, _, extra = self.ckpt.restore(params_like=srv.params,
+                                                   device=device)
+        if extra.get("kind") != kind:
+            raise ValueError(f"checkpoint at step {step} is a "
+                             f"'{extra.get('kind')}' run, not '{kind}'")
+        srv.params = params
+        srv.load_state_dict(extra["server"])
+        like = {"key": self.key}
+        if srv._sopt_state.momentum is not None:
+            like["sopt_m"] = srv._sopt_state.momentum
+        if srv._sopt_state.variance is not None:
+            like["sopt_v"] = srv._sopt_state.variance
+        for i in range(len(extra["heap_meta"])):
+            like[f"h{i}"] = srv.params
+        state = load_pytree(self.ckpt.path_for(step) / "opt_state.npz", like,
+                            device=device)
+        self.key = state["key"]
+        if "sopt_m" in like:
+            srv._sopt_state = dataclasses.replace(
+                srv._sopt_state, momentum=state["sopt_m"])
+        if "sopt_v" in like:
+            srv._sopt_state = dataclasses.replace(
+                srv._sopt_state, variance=state["sopt_v"])
+        self.rng.bit_generator.state = extra["rng_state"]
+        heap = [(float(m["t_fin"]), int(m["seq"]), int(m["wid"]),
+                 state[f"h{i}"], int(m["base_version"]), bool(m["dup"]))
+                for i, m in enumerate(extra["heap_meta"])]
+        heapq.heapify(heap)
+        return {"step": step, "t": float(extra["t"]),
+                "last_acc": float(extra["last_acc"]), "heap": heap,
+                "seq": int(extra["seq"]), "merges": int(extra["merges"]),
+                "rejects": {int(k): int(v)
+                            for k, v in extra.get("rejects", {}).items()}}
+
+    def _resumable(self, resume: bool) -> bool:
+        return resume and self.ckpt is not None and \
+            self.ckpt.latest_step() is not None
+
+    def _skip_crash_after(self, resumed_past: int) -> Optional[int]:
+        """The crash that killed the run we are resuming must not re-fire
+        when its round is replayed; later crash rounds still do."""
+        if self.faults is None:
+            return None
+        pending = [int(r) for r in self.faults.cfg.server_crash_rounds
+                   if int(r) > resumed_past]
+        return min(pending, default=None)
 
     # -- cohort training ----------------------------------------------
     def _train_plan(self, params, plan: list[tuple[int, int, object]]
@@ -175,17 +263,27 @@ class FLSimulation:
 
     # -- synchronous ---------------------------------------------------
     def run_sync(self, rounds: int, *, max_time: float = np.inf,
-                 target_acc: float = np.inf) -> SimResult:
+                 target_acc: float = np.inf, resume: bool = False
+                 ) -> SimResult:
         srv = self.server
-        t = 0.0
-        last_acc = self._eval(srv.params)
-        recs = [SimRecord(0.0, last_acc, 0, 0, 0)]
-        for rnd in range(1, rounds + 1):
+        skip_crash = None
+        if self._resumable(resume):
+            st = self._restore_state("sync")
+            t, start, last_acc = st["t"], st["step"], st["last_acc"]
+            recs: list[SimRecord] = []
+            skip_crash = self._skip_crash_after(start)
+        else:
+            t, start = 0.0, 0
+            last_acc = self._eval(srv.params)
+            recs = [SimRecord(0.0, last_acc, 0, 0, 0)]
+        for rnd in range(start + 1, rounds + 1):
             sel = srv.select()
             if not sel:
                 t += self.idle_tick
                 recs.append(SimRecord(t, last_acc, rnd, 0, srv.version))
                 srv.record_accuracy(last_acc)
+                if self.ckpt and rnd % self.ckpt_every == 0:
+                    self._save_state("sync", rnd, t, last_acc)
                 continue
             finish = 0.0
             budget = max(
@@ -205,27 +303,43 @@ class FLSimulation:
             responses = self._inject_sync(responses, srv.params, rnd)
             t += finish + self.round_overhead
             srv.sync_aggregate(responses, t)
-            if self.faults is not None and self.faults.server_crashes(rnd):
-                # killed mid-round: the round's work is lost (no record)
+            if self.faults is not None and self.faults.server_crashes(rnd) \
+                    and rnd != skip_crash:
+                # killed mid-round: the round's work is lost (no record, no
+                # checkpoint); resume replays it from the last checkpoint
                 return SimResult(recs, srv.params, crashed=True)
             acc = self._eval(srv.params)
             last_acc = acc
             recs.append(SimRecord(t, acc, rnd, len(sel), srv.version))
             srv.record_accuracy(acc)
+            if self.ckpt and rnd % self.ckpt_every == 0:
+                self._save_state("sync", rnd, t, acc)
             if acc >= target_acc or t >= max_time:
                 break
         return SimResult(recs, srv.params)
 
     # -- asynchronous ----------------------------------------------------
     def run_async(self, max_merges: int, *, max_time: float = np.inf,
-                  target_acc: float = np.inf) -> SimResult:
+                  target_acc: float = np.inf, resume: bool = False
+                  ) -> SimResult:
         srv = self.server
         heap: list = []
         rejects: dict[int, int] = {}
-        t, merges, seq = 0.0, 0, 0
-        last_acc = self._eval(srv.params)
-        recs = [SimRecord(0.0, last_acc, 0, 0, 0)]
-        in_flight: set[int] = set()
+        skip_crash = None
+        restored = self._resumable(resume)
+        if restored:
+            st = self._restore_state("async")
+            t, merges, last_acc = st["t"], st["merges"], st["last_acc"]
+            heap, seq, rejects = st["heap"], st["seq"], st["rejects"]
+            recs: list[SimRecord] = []
+            skip_crash = self._skip_crash_after(merges)
+        else:
+            t, merges, seq = 0.0, 0, 0
+            last_acc = self._eval(srv.params)
+            recs = [SimRecord(0.0, last_acc, 0, 0, 0)]
+        # a duplicate re-delivery is not an outstanding dispatch: the live
+        # run never marks it in-flight, so the rebuilt set must not either
+        in_flight: set[int] = {e[2] for e in heap if not e[5]}
 
         def dispatch(wid: int, now: float, delay: float = 0.0):
             nonlocal seq
@@ -250,8 +364,10 @@ class FLSimulation:
             seq += 1
             in_flight.add(wid)
 
-        for wid in srv.select():
-            dispatch(wid, t)
+        # a restored run's dispatches are in its heap already
+        if not restored:
+            for wid in srv.select():
+                dispatch(wid, t)
 
         while merges < max_merges and t < max_time:
             if not heap:  # nobody selected yet (alg-2 cold start, T=0)
@@ -290,7 +406,9 @@ class FLSimulation:
                         dispatch(w2, t)
                 continue
             merges += 1
-            if self.faults is not None and self.faults.server_crashes(merges):
+            if self.faults is not None and \
+                    self.faults.server_crashes(merges) and \
+                    merges != skip_crash:
                 return SimResult(recs, srv.params, crashed=True)
             acc = self._eval(srv.params)
             last_acc = acc
@@ -301,4 +419,10 @@ class FLSimulation:
             for w2 in srv.select():
                 if w2 not in in_flight:
                     dispatch(w2, t)
+            # checkpoint AFTER the re-dispatch: the saved heap must contain
+            # the responses this merge put in flight, or a resumed run
+            # would never see them
+            if self.ckpt and merges % self.ckpt_every == 0:
+                self._save_state("async", merges, t, acc, heap=heap,
+                                 seq=seq, merges=merges, rejects=rejects)
         return SimResult(recs, srv.params)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import subprocess
 import time
 
@@ -24,13 +25,16 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core import aggregation
+from repro_torch.core.client import LocalTrainer
+from repro_torch.core.server import AggregationServer
 from repro_torch.examples import quickstart
 from repro_torch.tree import tree_map
 
 
-def _timed(obj, name: str, bucket: dict, label: str):
-    """Wrap obj.name so its host time, device work included, adds up."""
-    fn = getattr(obj, name)
+def timed(cls, name: str, bucket: dict, label: str):
+    """Wrap cls.name so its host time, device work included, adds up in
+    bucket[label] for every instance."""
+    fn = getattr(cls, name)
 
     def wrapped(*args, **kwargs):
         torch.cuda.synchronize()
@@ -39,32 +43,52 @@ def _timed(obj, name: str, bucket: dict, label: str):
         torch.cuda.synchronize()
         bucket[label] += time.perf_counter() - t0
         return out
-    setattr(obj, name, wrapped)
+    setattr(cls, name, wrapped)
 
 
-def layer_times(max_merges: int) -> dict[str, float]:
-    sim = quickstart.make_simulation("cuda")
-    trainer = next(iter(sim.workers.values())).trainer
+LAYERS = ((LocalTrainer, "train_checked", "local training"),
+          (LocalTrainer, "train_cohort_checked", "local training"),
+          (LocalTrainer, "evaluate", "evaluation"),
+          (AggregationServer, "sync_aggregate", "merge"),
+          (AggregationServer, "async_fold", "merge"))
+
+
+@contextlib.contextmanager
+def layer_times():
+    """Time the layers of every simulation run inside the block -> a
+    bucket of seconds by label; "total" and the engine's rest are filled
+    in on exit."""
     bucket: dict[str, float] = collections.defaultdict(float)
-    _timed(trainer, "train_checked", bucket, "local training")
-    _timed(trainer, "evaluate", bucket, "evaluation")
-    _timed(sim.server, "async_fold", bucket, "merge (async_fold)")
+    saved = [(cls, name, cls.__dict__[name]) for cls, name, _ in LAYERS]
+    for cls, name, label in LAYERS:
+        timed(cls, name, bucket, label)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sim.run_async(max_merges=max_merges)
-    torch.cuda.synchronize()
-    total = time.perf_counter() - t0
-    bucket["engine, selection, host"] = total - sum(bucket.values())
-    bucket["total"] = total
-    return dict(bucket)
+    try:
+        yield bucket
+    finally:
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+        bucket["engine, selection, host"] = total - sum(bucket.values())
+        bucket["total"] = total
 
 
-def device_profile(max_merges: int):
-    sim = quickstart.make_simulation("cuda")
+def report(label: str, bucket: dict[str, float]):
+    total = bucket["total"]
+    parts = ", ".join(f"{k} {v:.3f} s ({v / total:.1%})" for k, v in
+                      sorted(bucket.items(), key=lambda kv: -kv[1])
+                      if k != "total")
+    print(f"{label}: {total:.3f} s wall; {parts}", flush=True)
+
+
+def device_profile(run):
+    """run() under torch.profiler -> (wall s, CUDA kernels by device time)."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.run_async(max_merges=max_merges)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
@@ -120,19 +144,22 @@ def main(argv=None):
         merge_calls()   # process may record no device activity
         return
     quickstart.run("cuda", max_merges=4)          # warm-up: build, cuDNN
-    times = layer_times(80)
-    total = times.pop("total")
-    print(f"quickstart, 80 merges: {total:.3f} s wall (layers timed "
-          "between synchronisations)")
-    for label, t in sorted(times.items(), key=lambda kv: -kv[1]):
-        print(f"  {label:26s} {t:8.3f} s  {t / total:6.1%}")
-    wall, kernels = device_profile(80)
+    sim = quickstart.make_simulation("cuda")
+    with layer_times() as bucket:
+        sim.run_async(max_merges=80)
+    report("quickstart, 80 merges (layers timed between synchronisations)",
+           bucket)
+    report_kernels(*device_profile(
+        lambda: quickstart.make_simulation("cuda").run_async(max_merges=80)))
+
+
+def report_kernels(wall: float, kernels, top: int = 12):
     busy_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
     print(f"under torch.profiler: {wall:.3f} s wall, {launches} kernel "
           f"launches, device busy {busy_us / 1e3:.1f} ms "
           f"({busy_us / 1e6 / wall:.2%} of wall)")
-    for e in kernels[:12]:
+    for e in kernels[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  "
               f"{e.key[:90]}")
 

@@ -208,6 +208,27 @@ def test_tree_merge_is_one_launch(cuda):
         assert torch.equal(g, x)
 
 
+def test_paper_suite_and_resume_launch_once_per_merge(cuda, tmp_path):
+    """A 2-round fig17 (the sequential, random and Alg. 2 sync fleets) and
+    a crashed-and-resumed async run on the card: one fed_agg launch per
+    merge, where a run's merges are its last record's server version; the
+    resumed run still equals the uninterrupted one, params bit for bit."""
+    from repro_torch.examples import resume
+    from repro_torch.examples.paper import fig17_alg2_sync
+    from repro_torch.examples.paper.common import recorded_results
+    before = tkernel.fed_agg_grouped_cuda.launches
+    with recorded_results() as results:
+        fig17_alg2_sync.main(rounds=2, seed=0, device="cuda")
+    merges = sum(r.records[-1].version for r in results)
+    assert len(results) == 3 and merges > 0
+    assert tkernel.fed_agg_grouped_cuda.launches - before == merges
+    before = tkernel.fed_agg_grouped_cuda.launches
+    ref, killed, resumed, merges = resume.crash_and_resume(
+        "async", tmp_path, "cuda")
+    assert resume.holds(ref, killed, resumed)
+    assert tkernel.fed_agg_grouped_cuda.launches - before == merges
+
+
 def _rows(R, C, seed, cuda, dtype):
     """Normal rows over four decades of scale; rows 0-3 (when present)
     hold a NaN, a +inf, a -inf, and zeros only."""

@@ -10,6 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.checkpoint import CheckpointManager as JaxCheckpointManager
 from repro.configs import get_config as jax_get_config
 from repro.core import client as jclient
 from repro.core import cost_model as jcm
@@ -19,6 +20,7 @@ from repro.data.partition import partition_by_batches
 from repro.data.synthetic import make_classification_set
 from repro.models import build_model as jax_build_model
 from repro_torch import threefry
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core import client as tclient
 from repro_torch.core import cost_model as tcm
@@ -144,10 +146,11 @@ def test_cohort_off_matches_cohort_on(synmnist, synmnist_test):
                                [r.acc for r in r_off.records], atol=1e-3)
 
 
-def test_as_arrays_and_ckpt_every_match_jax(synmnist, synmnist_test):
+def test_as_arrays_and_ckpt_every_match_jax(synmnist, synmnist_test,
+                                            tmp_path):
     """`SimResult.as_arrays()` gives the reference's (time, accuracy)
-    arrays for the same 2 sync rounds, and `ckpt_every=` constructs
-    alone as the reference's signature takes it (`ckpt=` still raises)."""
+    arrays for the same 2 sync rounds, and `ckpt_every=` with `ckpt=`
+    checkpoints the rounds the reference's does (every third)."""
     jsim, tsim = _sims(synmnist, synmnist_test, policy="all", mode="sync",
                        epochs=1)
     (jt, ja), (tt, ta) = (jsim.run_sync(rounds=2).as_arrays(),
@@ -158,10 +161,15 @@ def test_as_arrays_and_ckpt_every_match_jax(synmnist, synmnist_test):
     ti, tl = synmnist_test[0][:256], synmnist_test[1][:256]
     sim = tevents.FLSimulation(tsim.server, tsim.workers, ti, tl,
                                ckpt_every=3)
-    assert sim.ckpt_every == 3
-    with pytest.raises(NotImplementedError):
-        tevents.FLSimulation(tsim.server, tsim.workers, ti, tl,
-                             ckpt=object(), ckpt_every=3)
+    assert sim.ckpt_every == 3 and sim.ckpt is None
+    steps = {}
+    for name, sim in (("jax", jsim), ("port", tsim)):
+        mgr = (JaxCheckpointManager if name == "jax" else
+               CheckpointManager)(tmp_path / name)
+        sim.ckpt, sim.ckpt_every = mgr, 3
+        sim.run_sync(rounds=7)
+        steps[name] = mgr.all_steps()
+    assert steps["port"] == steps["jax"] == [3, 6]
 
 
 def test_quickstart_runs_on_cpu_and_matches_jax():
@@ -185,11 +193,20 @@ def test_entry_points_raise_without_cuda():
         quickstart.make_simulation(policy="all", mode="sync")
 
 
-def test_unported_engine_options_raise():
-    """`ckpt=` waits for checkpoint/manager; `faults=` is ported (held
-    against JAX in test_torch_faults.py)."""
-    with pytest.raises(NotImplementedError):
-        tevents.FLSimulation(None, {}, None, None, ckpt=object())
+def test_unported_engine_options_raise(synmnist, synmnist_test, tmp_path):
+    """Every engine option is ported now (`faults=`: test_torch_faults.py;
+    `ckpt=` / `resume=`: test_torch_resume.py); what still raises is a
+    resume from a checkpoint the run cannot take: an async run's state
+    resumed by a sync run, as the reference refuses it."""
+    _, tsim = _sims(synmnist, synmnist_test, policy="all", mode="async",
+                    epochs=1)
+    tsim.ckpt = CheckpointManager(tmp_path)
+    tsim.run_async(max_merges=2)
+    _, fresh = _sims(synmnist, synmnist_test, policy="all", mode="sync",
+                     epochs=1)
+    fresh.ckpt = tsim.ckpt
+    with pytest.raises(ValueError, match="'async' run, not 'sync'"):
+        fresh.run_sync(rounds=3, resume=True)
 
 
 if __name__ == "__main__":
