@@ -42,7 +42,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      async merge 4, then resumed from its checkpoint: killed + resumed
      must equal the uninterrupted run's records and final params exactly,
      one fed_agg launch a merge;
-  7. hold the grouped quant8 kernels (quantise, dequantise; one launch
+  7. the scenario engine (core/scenarios.py) at 10^3 and 10^5 workers:
+     examples/fl_scale's four cells (5 sync rounds, 64 async merges under
+     churn, stragglers and drift), whose record streams must equal the
+     JAX engine's (JAX_FL_SCALE: digest, length, last record) and best
+     accuracies equal to its (SCENARIO_ACC_TOL = 0), with one fed_agg
+     launch an async merge and none a sync round; 64 async merges of
+     flight-cnn-mnist at 10^5 workers through the kernel and through the
+     plain version (records equal, params bit-equal); examples/fl_faults'
+     six cells with the benchmark's invariants, the clean and robust
+     cells' best accuracies equal to the JAX engine's (SCENARIO_ACC_TOL)
+     and the quarantine counts equal to its; the scenario fleet of the
+     JAX package's resume test killed at sync round 2 and async merge 5
+     and resumed (equal to the uninterrupted run, params bit-equal); then
+     examples/profile_scenarios' breakdown of the 10^5-worker loop;
+  8. hold the grouped quant8 kernels (quantise, dequantise; one launch
      over a list of leaves) against their plain version, bit for bit:
      over C x rows x dtype with NaN/inf rows as groups of one, with their
      times, the plain version's, one `q * scale` call's and the bound;
@@ -55,7 +69,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      calls), warm (inputs in L2) and cold (L2 flushed first), in CUDA-graph
      and Python-call time, beside the bound, and the same at granite-20b's
      int8 K/V cache shape (bf16);
-  8. the exchange path: examples/fl_exchange at P = 2, 4, 8 in the modes
+  9. the exchange path: examples/fl_exchange at P = 2, 4, 8 in the modes
      f32, q8, topk and q8_topk, flat and two-tier, through the kernels and
      through the plain version (equal outputs; wire MB equal to the JAX
      benchmark's BENCH_exchange.json); one q8 exchange must be 2 quant8
@@ -63,7 +77,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      hop), a plain one 0; then 4 islands of flight-cnn-mnist, 3 rounds of
      one local epoch and a q8 exchange through 2 fog cells, through the
      kernels and the plain version, which must give equal final params;
-  9. hold flash_attention against its plain version over
+  10. hold flash_attention against its plain version over
      tests/test_kernels.py's shapes, odd T (1, 77, 1,000, 4,097), D = 8,
      12, 16, 200, 256, windows off the tile grid, non-causal, fp32 and
      bf16 (3e-4 / 3e-2), and strided views on the mma.sync and FMA routes,
@@ -72,7 +86,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      and recurrentgemma-9b's full-width prefill shapes beside the bound,
      the plain version and one scaled_dot_product_attention call (a
      yardstick the port never calls);
-  10. the LM serving path at granite-20b's full width (20.32 B params,
+  11. the LM serving path at granite-20b's full width (20.32 B params,
      bf16, drawn on the card): `python -m repro_torch.launch.serve --full
      --batch 8 --prompt-len 2048 --gen 32` through its main, which must
      launch flash_attention once per layer (52), all on the wgmma route;
@@ -80,12 +94,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      prefilled through the kernel, each layer's attention held against the
      plain version on the same q/k/v (3e-2), and again through the plain
      version: last-position logits within 2e-2 scale-relative;
-  11. the continuous-batching ServeLoop at full width (4 slots, 4,096
+  12. the continuous-batching ServeLoop at full width (4 slots, 4,096
      positions) draining 8 requests of 1 to 2,047 prompt tokens, 16 new
      tokens each: one flash launch per layer per admitted prefill, each
      first token equal to its solo prefill's; token agreement with solo
      generation is reported;
-  12. hold linrec against its plain version, bit for bit, over
+  13. hold linrec against its plain version, bit for bit, over
      tests/test_kernels.py's shapes, odd T (1, 77, 1,000) and odd D (12,
      130), with and without a starting state, fp32 and bf16, on each route
      that takes the shape (column always, tma where TMA can describe it),
@@ -93,7 +107,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      recurrent models' prefill scans and a falcon decode step, in turns
      (the median of three readings a route), beside the bound and the plain version (no single PyTorch call
      computes it);
-  13. falcon-mamba-7b at full width (7.27 B params, bf16, drawn on the
+  14. falcon-mamba-7b at full width (7.27 B params, bf16, drawn on the
      card): `python -m repro_torch.launch.serve --arch falcon-mamba-7b
      --full --batch 4 --prompt-len 2048 --gen 32` through its main, which
      must launch linrec once per layer in the prefill (64, all on the tma
@@ -101,18 +115,18 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      kernel, each layer's scan held against the plain version on the same
      a, b (2e-4), and again through the plain version: last-position
      logits within 2e-2 scale-relative;
-  14. falcon-mamba-7b in a full-width ServeLoop (4 slots) draining 8
+  15. falcon-mamba-7b in a full-width ServeLoop (4 slots) draining 8
      requests of 3 to 2,047 prompt tokens, 16 new tokens each: one linrec
      launch per layer per admitted prefill and per decode step, each first
      token equal to its solo prefill's; agreement with solo generation is
      reported;
-  15. recurrentgemma-9b at full width (10.44 B params): `serve.py --arch
+  16. recurrentgemma-9b at full width (10.44 B params): `serve.py --arch
      recurrentgemma-9b --full --batch 2 --prompt-len 2048 --gen 32`, 26
      linrec and 12 flash launches (wgmma route) in the prefill and 26 linrec launches a
      decode step; then its 2 x 2,048 prefill's attention and scans held
      layer by layer against the plain versions, and its last-position
      logits against the plain run's: within 3.5e-2 (see LM_LOGITS_TOL);
-  16. print the kernel table as JSON, then the result line.
+  17. print the kernel table as JSON, then the result line.
 
 Each model is freed before the next one is drawn (40.6, 14.6, then 20.9
 GB of weights).
@@ -168,6 +182,36 @@ JAX_FIG18 = {0: (-0.022147, 0.187297), 1: (-0.722277, 0.121167),
              4: (-0.317154, 0.197151), 5: (-1.222383, -0.052547),
              6: (-0.872593, 0.057101), 7: (-1.317599, 0.002766)}
 FIG18_TOL = {"selection_gain": 0.0807, "async_gain": 0.0238}
+# the scenario engine's workloads (examples/fl_scale.py, fl_faults.py) on
+# the JAX engine on the CPU, as printed by `PYTHONPATH=src
+# JAX_PLATFORMS=cpu python tests/test_torch_scenarios.py`.  fl_scale, per
+# cell: best accuracy, the digest of the time / round / n_selected /
+# version columns (fl_scale.stream_digest), the number of records and the
+# last record.  fl_faults, per cell: best accuracy, workers quarantined.
+JAX_FL_SCALE = {
+    "sync_n1000": (0.11328125, "f54a3647035cc886", 6,
+                   (10.791956815064248, 5, 46, 5)),
+    "async_n1000": (0.13671875, "3ff0d048f6f386f4", 65,
+                    (0.4771685023322979, 64, 1, 64)),
+    "sync_n100000": (0.126953125, "e52974767a17f226", 6,
+                     (14.719007757081545, 5, 4546, 5)),
+    "async_n100000": (0.123046875, "ba993d6353a62e19", 65,
+                      (0.1550032899296343, 64, 1, 64))}
+JAX_FL_FAULTS = {"clean_fedavg": (0.947265625, 0),
+                 "attacked_fedavg": (0.2265625, 0),
+                 "attacked_trimmed": (0.94140625, 0),
+                 "attacked_krum": (0.9453125, 0),
+                 "attacked_median": (0.935546875, 0),
+                 "attacked_nonfinite": (0.953125, 47)}
+# best accuracy of the fl_scale cells and of fl_faults' clean and robust
+# cells: twice the largest shift of the JAX value when every initial param
+# moves one ulp up or down; no value moved (`python
+# tests/test_torch_scenarios.py` prints "tolerance 0.0"), so they are held
+# exactly (PERF.md section 6).  attacked_fedavg's value is chaotic (0.2266,
+# one ulp down 0.2207): only its invariant is held.
+SCENARIO_ACC_TOL = 0.0
+SCENARIO_HELD = ("clean_fedavg", "attacked_trimmed", "attacked_krum",
+                 "attacked_median")
 # quant8 sweep: row width C (5: odd; 256: the exchange's matrices; 1027:
 # its bias; 4096; 151,936: an LM head's vocabulary row) x total elements
 Q8_WIDTHS = (5, 256, 1027, 4096, 151_936)
@@ -323,14 +367,15 @@ def fed_agg_tree_sweep(torch, np):
     merges over its MLP's 4 leaves (fig12's all-worker sync round, K = 10;
     fig18's async merge, K = 2), the resume fleet's sync round over its
     MLP (K = 5) and the overhead bench's two aggregations (10 x 2^20 and
-    8 x 2^18 fp32); a mixed fp32 / bf16 tree, and a tree past a launch's
-    capacity (its launches counted); beside them an empty kernel's graph
-    time, the launch floor, and the async merge as the server calls it
-    (`aggregation.async_merge`) in Python-call time.  -> the async merge's
-    record."""
+    8 x 2^18 fp32); the scenario engine's async merge over its
+    scenario-mlp's 4 leaves (K = 2); a mixed fp32 / bf16 tree, and a tree
+    past a launch's capacity (its launches counted); beside them an empty
+    kernel's graph time, the launch floor, and the async merge as the
+    server calls it (`aggregation.async_merge`) in Python-call time.  ->
+    the async merge's record."""
     from repro_torch import threefry
     from repro_torch.configs import get_config
-    from repro_torch.core import aggregation
+    from repro_torch.core import aggregation, scenarios
     from repro_torch.examples import resume
     from repro_torch.examples.paper import common
     from repro_torch.kernels.fed_agg import kernel as fa
@@ -390,6 +435,10 @@ def fed_agg_tree_sweep(torch, np):
                                            mixed), 2)]
     errs = [held(label, ms_, rng.dirichlet([1.0] * len(ms_)), launches)
             for label, ms_, launches in cases]
+    scenario_mlp = leaf_shapes(build_model(scenarios._DEFAULT_MODEL).init(
+        threefry.key(0), torch.device("cuda")))
+    errs.append(held("fl_scale async merge, scenario-mlp",
+                     members(2, scenario_mlp), rng.dirichlet([1.0] * 2), 1))
     print(f"fed_agg capacity: {slots} member slots, {parts} leaves a launch",
           flush=True)
 
@@ -1228,6 +1277,121 @@ def resume_path(torch) -> int:
     return total
 
 
+def scenarios_path(torch, card: str) -> int:
+    """The scenario engine on the card: fl_scale's cells against the JAX
+    engine's streams, flight-cnn-mnist's async run at 10^5 workers through
+    the kernel and the plain version, fl_faults' cells and invariants, the
+    scenario fleet's resume, then where the 10^5-worker loop's time goes.
+    -> fed_agg launches of the scenario runs (the profile's excepted)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.scenarios import ScenarioSim
+    from repro_torch.examples import (fl_faults, fl_scale, profile_scenarios,
+                                      resume)
+    from repro_torch.kernels.fed_agg import kernel
+    from repro_torch.tree import leaves
+    cnn = get_config("flight-cnn-mnist")
+    # cuDNN's first CNN calls, outside the counted and timed runs
+    ScenarioSim(fl_scale.scenario(1_000), model_cfg=cnn,
+                device="cuda").run_async(1)
+    kernel.fed_agg_grouped_cuda.launches = 0
+    t0 = time.perf_counter()
+    scale, results = fl_scale.run_all("cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel.fed_agg_grouped_cuda.launches
+    for name, cell in scale["cells"].items():
+        res = results[name]
+        best, digest, n_records, last = JAX_FL_SCALE[name]
+        r = res.records[-1]
+        got = (fl_scale.stream_digest(res), len(res.records),
+               (r.time, r.round, r.n_selected, r.version))
+        merges = r.version if name.startswith("async") else 0
+        print(f"fl_scale {name}: {cell['wall_s']} s wall ({card}), best "
+              f"accuracy {res.best_acc} (JAX {best}), stream {got[0]} "
+              f"(JAX {digest}), last record {got[2]}, "
+              f"{cell['fed_agg_launches']} fed_agg launches", flush=True)
+        check(got == (digest, n_records, last), f"fl_scale {name}: record "
+              f"stream {got} differs from the JAX engine's "
+              f"{(digest, n_records, last)}")
+        check(abs(res.best_acc - best) <= SCENARIO_ACC_TOL,
+              f"fl_scale {name}: best accuracy {res.best_acc} outside "
+              f"{best}+-{SCENARIO_ACC_TOL}")
+        check(cell["fed_agg_launches"] == merges, f"fl_scale {name}: "
+              f"{cell['fed_agg_launches']} fed_agg launches in {merges} "
+              "merges")
+        for leaf in leaves(res.final_params):
+            check(bool(torch.isfinite(leaf).all()),
+                  f"fl_scale {name}: non-finite final params")
+    # one warm-up merge per population size besides the cells
+    expected = sum(c["fed_agg_launches"] for c in scale["cells"].values()) \
+        + len(fl_scale.WORKERS)
+    check(launches == expected, f"fl_scale made {launches} fed_agg "
+          f"launches, {expected} expected")
+    print(f"fl_scale: {wall:.3f} s wall for its four cells and warm-ups "
+          f"({card}), {launches} fed_agg launches", flush=True)
+
+    runs = {impl: fl_scale.run_cell(100_000, "async", "cuda", model_cfg=cnn,
+                                    impl=impl) for impl in ("auto", "ref")}
+    (rk, wk, nk), (rr, wr, nr) = runs["auto"], runs["ref"]
+    pk, pr = leaves(rk.final_params), leaves(rr.final_params)
+    err = max(float((a - b).abs().max()) for a, b in zip(pk, pr))
+    n_params = sum(p.numel() for p in pk)
+    print(f"flight-cnn-mnist ({n_params} params in {len(pk)} leaves), "
+          f"10^5 workers, {fl_scale.ASYNC_MERGES} async merges: kernel "
+          f"{wk:.3f} s, plain {wr:.3f} s wall ({card}); best accuracy "
+          f"{rk.best_acc} and {rr.best_acc}; final params max |diff| {err}; "
+          f"fed_agg launches {nk} and {nr}", flush=True)
+    check((n_params, len(pk)) == (20_490, 6), "flight-cnn-mnist's tree")
+    check(rk.records == rr.records and err == 0.0 and all(
+        torch.equal(a, b) for a, b in zip(pk, pr)),
+        "flight-cnn-mnist scenario: kernel and plain merges differ")
+    check(nk == rk.records[-1].version == fl_scale.ASYNC_MERGES and nr == 0,
+          f"flight-cnn-mnist scenario: fed_agg launches {nk} (kernel), "
+          f"{nr} (plain) in {rk.records[-1].version} merges")
+    launches += nk
+
+    faults = fl_faults.run_all("cuda")
+    for name, cell in faults["cells"].items():
+        print(f"fl_faults {name}: best accuracy {cell['best_acc']} (JAX "
+              f"{JAX_FL_FAULTS[name][0]}), final {cell['final_acc']}, "
+              f"finite {cell['params_finite']}, quarantined "
+              f"{cell['n_quarantined']} (JAX {JAX_FL_FAULTS[name][1]}), "
+              f"{cell['wall_s']} s wall ({card})", flush=True)
+        check(cell["n_quarantined"] == JAX_FL_FAULTS[name][1],
+              f"fl_faults {name}: {cell['n_quarantined']} quarantined")
+    failures = fl_faults.check_invariants(faults)
+    check(not failures, f"fl_faults invariants: {failures}")
+    for name in SCENARIO_HELD:
+        best = round(JAX_FL_FAULTS[name][0], 4)    # the record's rounding
+        got = faults["cells"][name]["best_acc"]
+        check(abs(got - best) <= SCENARIO_ACC_TOL, f"fl_faults {name}: "
+              f"best accuracy {got} outside {best}+-{SCENARIO_ACC_TOL}")
+
+    with tempfile.TemporaryDirectory() as d:
+        for mode in ("sync", "async"):
+            before = kernel.fed_agg_grouped_cuda.launches
+            ref, killed, resumed, merges = resume.scenario_crash_and_resume(
+                mode, d, "cuda")
+            torch.cuda.synchronize()
+            n = kernel.fed_agg_grouped_cuda.launches - before
+            check(resume.holds(ref, killed, resumed),
+                  f"scenario {mode} resume differs from the uninterrupted "
+                  "run")
+            check(n == (merges if mode == "async" else 0),
+                  f"scenario {mode} resume: {n} fed_agg launches")
+            launches += n
+            print(f"scenario resume {mode}: killed after "
+                  f"{len(killed.records)} records at "
+                  f"{'round' if mode == 'sync' else 'merge'} "
+                  f"{resume.SCENARIO_CRASH_AT[mode]}, resumed "
+                  f"{len(resumed.records)}: equal to the uninterrupted "
+                  f"{len(ref.records)} records and its final params bit for "
+                  f"bit; {n} fed_agg launches", flush=True)
+
+    profile_scenarios.main([])
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1377,12 +1541,15 @@ def main() -> int:
     # 6. crash-safe resume on the card, counted from zero
     resume_launches = resume_path(torch)
 
-    # 7. quant8 kernels vs plain version (launches here are not the path's)
+    # 7. the scenario engine on the card, counted from zero
+    scenario_launches = scenarios_path(torch, card)
+
+    # 8. quant8 kernels vs plain version (launches here are not the path's)
     q8_rows = quant8_sweep(torch)
     quant8_mixed_lists(torch)
     q8_main = quant8_exchange_shapes(torch)
 
-    # 8. the exchange path, counted from zero: the entry point at P = 2,
+    # 9. the exchange path, counted from zero: the entry point at P = 2,
     #    4, 8 x 4 modes, flat and two-tier, and the paper's model on islands
     q8.quantize_grouped_cuda.launches = q8.dequantize_grouped_cuda.launches = 0
     t0 = time.perf_counter()
@@ -1434,36 +1601,36 @@ def main() -> int:
           f"accuracy {accs_k} through the kernels, {accs_r} plain; final "
           f"params max |diff| {island_gap}", flush=True)
 
-    # 9. flash_attention vs plain version (launches here are not the path's)
+    # 10. flash_attention vs plain version (launches here are not the path's)
     fa_recs = flash_sweep(torch)
     fa_main = fa_recs[LM_ARCH]
 
-    # 10. the LM serving path at full width, counted from zero
+    # 11. the LM serving path at full width, counted from zero
     res, lm_launches, lm_peak = lm_serve(torch, LM_ARCH, LM_BATCH)
     model, params = res["model"], res["params"]
     del res
     lm_kernel_vs_plain(torch, model, params)
 
-    # 11. continuous batching at full width, counted from zero
+    # 12. continuous batching at full width, counted from zero
     loop_launches = lm_serve_loop(torch, model, params, LOOP_LENGTHS)
     del model, params
     torch.cuda.empty_cache()
 
-    # 12. linrec vs plain version (launches here are not the path's)
+    # 13. linrec vs plain version (launches here are not the path's)
     lr_main = linrec_sweep(torch)
 
-    # 13. falcon-mamba-7b at full width, counted from zero
+    # 14. falcon-mamba-7b at full width, counted from zero
     res, ssm_launches, ssm_peak = lm_serve(torch, SSM_ARCH, SSM_BATCH)
     model, params = res["model"], res["params"]
     del res
     lm_kernel_vs_plain(torch, model, params)
 
-    # 14. falcon-mamba-7b in the ServeLoop, counted from zero
+    # 15. falcon-mamba-7b in the ServeLoop, counted from zero
     ssm_loop_launches = lm_serve_loop(torch, model, params, SSM_LOOP_LENGTHS)
     del model, params
     torch.cuda.empty_cache()
 
-    # 15. recurrentgemma-9b at full width, counted from zero
+    # 16. recurrentgemma-9b at full width, counted from zero
     res, hybrid_launches, hybrid_peak = lm_serve(torch, HYBRID_ARCH,
                                                  HYBRID_BATCH)
     model, params = res["model"], res["params"]
@@ -1472,7 +1639,7 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
 
-    # 16. results
+    # 17. results
     # fed_agg on its main path: one grouped launch over the async merge's
     # tree; library_ms is one einsum over the same elements as a (2, N)
     # stack (the sweep's (2, 20,490) row), which no tree call has
@@ -1483,10 +1650,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/fed_agg/csrc/fed_agg.cu",
         "replaces": "src/repro/kernels/fed_agg/kernel.py:40",
         # every merge path's launches: each counted from zero around it
-        "launches": launches + paper_launches["figures"] + resume_launches,
+        "launches": launches + paper_launches["figures"] + resume_launches
+        + scenario_launches,
         "launches_by_path": {"quickstart": launches,
                              "paper_suite": paper_launches["figures"],
-                             "resume": resume_launches},
+                             "resume": resume_launches,
+                             "scenarios": scenario_launches},
         "max_abs_err": fa_merge["max_abs_err"],
         "ms": fa_merge["ms"], "plain_ms": fa_merge["plain_ms"],
         "bound_ms": fa_merge["bound_ms"], "bound_by": fa_merge["bound_by"],

@@ -11,6 +11,7 @@
 #   federated   -- the island exchange (mixing contraction, compressed)
 #   hierarchy   -- edge -> fog -> cloud aggregation
 #   faults      -- seeded fault injection (Byzantine, drops, crashes)
+#   scenarios   -- population-scale (10^5-worker) scenario engine
 from repro_torch.core import (aggregation, client, compression, cost_model,
                               events, faults, federated, hierarchy,
-                              selection, server, server_opt)
+                              scenarios, selection, server, server_opt)

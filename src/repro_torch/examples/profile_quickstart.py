@@ -31,21 +31,6 @@ from repro_torch.examples import quickstart
 from repro_torch.tree import tree_map
 
 
-def timed(cls, name: str, bucket: dict, label: str):
-    """Wrap cls.name so its host time, device work included, adds up in
-    bucket[label] for every instance."""
-    fn = getattr(cls, name)
-
-    def wrapped(*args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        torch.cuda.synchronize()
-        bucket[label] += time.perf_counter() - t0
-        return out
-    setattr(cls, name, wrapped)
-
-
 LAYERS = ((LocalTrainer, "train_checked", "local training"),
           (LocalTrainer, "train_cohort_checked", "local training"),
           (LocalTrainer, "evaluate", "evaluation"),
@@ -54,24 +39,45 @@ LAYERS = ((LocalTrainer, "train_checked", "local training"),
 
 
 @contextlib.contextmanager
-def layer_times():
-    """Time the layers of every simulation run inside the block -> a
-    bucket of seconds by label; "total" and the engine's rest are filled
+def layer_times(layers=LAYERS, device="cuda"):
+    """Time each (owner, attribute, label) of `layers` -- a class's method
+    or a module's function -- in every run inside the block, between
+    synchronisations -> a bucket of seconds by label.  A layer's time is
+    its self time: layers nested inside it are taken out.  "engine" (the
+    rest: the engine's own code, selection, host) and "total" are filled
     in on exit."""
+    # imported here: --merge reads older trees, whose runtime lacks it
+    from repro_torch.runtime import synchronize
     bucket: dict[str, float] = collections.defaultdict(float)
-    saved = [(cls, name, cls.__dict__[name]) for cls, name, _ in LAYERS]
-    for cls, name, label in LAYERS:
-        timed(cls, name, bucket, label)
-    torch.cuda.synchronize()
+    inner = [0.0]           # time of the timed layers inside the current one
+
+    def timed(fn, label):
+        def wrapped(*args, **kwargs):
+            synchronize(device)
+            outer, inner[0] = inner[0], 0.0
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                synchronize(device)
+                spent = time.perf_counter() - t0
+                bucket[label] += spent - inner[0]
+                inner[0] = outer + spent
+        return wrapped
+
+    saved = [(owner, name, vars(owner)[name]) for owner, name, _ in layers]
+    for owner, name, label in layers:
+        setattr(owner, name, timed(getattr(owner, name), label))
+    synchronize(device)
     t0 = time.perf_counter()
     try:
         yield bucket
     finally:
-        torch.cuda.synchronize()
+        synchronize(device)
         total = time.perf_counter() - t0
-        for cls, name, fn in saved:
-            setattr(cls, name, fn)
-        bucket["engine, selection, host"] = total - sum(bucket.values())
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+        bucket["engine"] = total - sum(bucket.values())
         bucket["total"] = total
 
 

@@ -6,6 +6,10 @@ The fleet and faults are the JAX package's resume test's: 5 workers of 2
 batches each training a 64-wide MLP on synMNIST (seed 11), 30 % Byzantine
 workers (sign flips, x8 scaling), 10 % dropped and 10 % re-delivered
 responses; the server dies in sync round 2 of 5, or at async merge 4 of 8.
+The scenario engine's fleet (`core/scenarios.py`) is the same test's
+other case: 40 workers, cohorts of 6 in 2 fog cells, 25 % Byzantine
+workers folded by a trimmed mean; it dies in sync round 2 of 4, or at
+async merge 5 of 8.
 
   PYTHONPATH=src python -m repro_torch.examples.resume [--device cpu]
 """
@@ -24,6 +28,7 @@ from repro_torch.core.client import LocalTrainer, SimWorker
 from repro_torch.core.cost_model import heterogeneous_profiles, make_stats
 from repro_torch.core.events import FLSimulation, SimResult
 from repro_torch.core.faults import FaultConfig, FaultPlan
+from repro_torch.core.scenarios import ScenarioConfig, ScenarioSim
 from repro_torch.core.server import AggregationServer, ServerConfig
 from repro_torch.data.partition import partition_by_batches
 from repro_torch.data.synthetic import make_classification_set
@@ -40,6 +45,12 @@ FAULTS = FaultConfig(byzantine_frac=0.3, attacks=("sign_flip", "scale"),
 CRASH_AT = {"sync": 2, "async": 4}      # round / merge the server dies in
 RUN_LEN = {"sync": 5, "async": 8}       # rounds / merges of a run
 SEED = 11
+SCENARIO = ScenarioConfig(n_workers=40, cohort_size=6, fog_cells=2,
+                          participation=0.4, samples_per_worker=32,
+                          byzantine_frac=0.25, byzantine_scale=8.0,
+                          robust_agg="trimmed_mean", trim_frac=0.3, seed=5)
+SCENARIO_CRASH_AT = {"sync": 2, "async": 5}
+SCENARIO_RUN_LEN = {"sync": 4, "async": 8}
 
 
 def make_sim(mode: str, *, faults=None, ckpt=None, device="cuda"
@@ -99,6 +110,34 @@ def crash_and_resume(mode: str, directory, device="cuda"
     return ref, killed, resumed, merges
 
 
+def scenario_run(mode: str, *, crash: bool = False, ckpt=None,
+                 device="cuda", resume: bool = False) -> SimResult:
+    """The scenario fleet's run; `crash` kills its server at
+    SCENARIO_CRASH_AT[mode]."""
+    cfg = dataclasses.replace(
+        SCENARIO, server_crash_round=SCENARIO_CRASH_AT[mode] if crash else 0)
+    sim = ScenarioSim(cfg, pool=256, eval_n=128, ckpt=ckpt, device=device)
+    n = SCENARIO_RUN_LEN[mode]
+    return sim.run_sync(n, resume=resume) if mode == "sync" else \
+        sim.run_async(n, resume=resume)
+
+
+def scenario_crash_and_resume(mode: str, directory, device="cuda"
+                              ) -> tuple[SimResult, SimResult, SimResult,
+                                         int]:
+    """As crash_and_resume, for the scenario fleet (checkpoints under
+    directory/scenario_<mode>)."""
+    ref = scenario_run(mode, device=device)
+    mgr = CheckpointManager(Path(directory) / f"scenario_{mode}")
+    killed = scenario_run(mode, crash=True, ckpt=mgr, device=device)
+    resumed = scenario_run(mode, crash=True, ckpt=mgr, device=device,
+                           resume=True)
+    # the killed server also made the merge of the round it died in, one
+    # past its last record's version, from which the resumed run starts
+    merges = ref.records[-1].version + 1 + resumed.records[-1].version
+    return ref, killed, resumed, merges
+
+
 def holds(ref: SimResult, killed: SimResult, resumed: SimResult) -> bool:
     """Killed, then resumed, equals the uninterrupted run: every record,
     and the final params bit for bit."""
@@ -114,15 +153,17 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     ok = True
     with tempfile.TemporaryDirectory() as d:
-        for mode in ("sync", "async"):
-            ref, killed, resumed, _ = crash_and_resume(mode, d,
-                                                       args.device)
-            good = holds(ref, killed, resumed)
-            ok &= good
-            print(f"{mode}: killed after {len(killed.records)} records, "
-                  f"resumed {len(resumed.records)}, uninterrupted "
-                  f"{len(ref.records)}: "
-                  f"{'identical' if good else 'DIFFERENT'}", flush=True)
+        for engine, fn in (("events", crash_and_resume),
+                           ("scenarios", scenario_crash_and_resume)):
+            for mode in ("sync", "async"):
+                ref, killed, resumed, _ = fn(mode, d, args.device)
+                good = holds(ref, killed, resumed)
+                ok &= good
+                print(f"{engine} {mode}: killed after "
+                      f"{len(killed.records)} records, resumed "
+                      f"{len(resumed.records)}, uninterrupted "
+                      f"{len(ref.records)}: "
+                      f"{'identical' if good else 'DIFFERENT'}", flush=True)
     return 0 if ok else 1
 
 

@@ -6,6 +6,8 @@ raises: the port never falls back to the CPU on its own.  Only an explicit
 """
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -28,3 +30,19 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
+
+
+def synchronize(device) -> None:
+    """Wait for the card's queued work; nothing to wait for on the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def card_label(device) -> str:
+    """The card's `name, power limit` as nvidia-smi prints them, or "cpu"."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]

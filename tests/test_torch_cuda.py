@@ -229,6 +229,44 @@ def test_paper_suite_and_resume_launch_once_per_merge(cuda, tmp_path):
     assert tkernel.fed_agg_grouped_cuda.launches - before == merges
 
 
+def test_scenario_async_merges_launch_fed_agg_once_each(cuda):
+    """fl_scale's async cell at 1,000 workers on the card: one fed_agg
+    launch a merge, and the kernel run equal to the plain one (impl="ref"),
+    records and final params bit for bit."""
+    from repro_torch.examples import fl_scale
+    (rk, _, nk), (rr, _, nr) = (
+        fl_scale.run_cell(1_000, "async", "cuda", impl=impl)
+        for impl in ("auto", "ref"))
+    assert rk.records[-1].version == fl_scale.ASYNC_MERGES == nk
+    assert nr == 0
+    assert rk.records == rr.records
+    for a, b in zip(leaves(rk.final_params), leaves(rr.final_params)):
+        assert torch.equal(a, b)
+
+
+def test_scenario_resume_and_bool_leaf_on_card(cuda, tmp_path):
+    """A bool leaf (the scenario engine's `alive` mask) survives a
+    checkpoint round trip as numpy and as a tensor on the card; the
+    scenario fleet killed at async merge 5 and resumed on the card equals
+    the uninterrupted run, one fed_agg launch a merge."""
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.examples import resume
+    alive = np.random.default_rng(0).random(1000) < 0.7
+    tree = {"alive": alive, "key": np.array([0, 5], np.uint32),
+            "mask": torch.from_numpy(alive).to(cuda)}
+    save_pytree(tree, tmp_path / "state.npz")
+    back = load_pytree(tmp_path / "state.npz", tree, device=cuda)
+    assert back["alive"].dtype == np.bool_
+    np.testing.assert_array_equal(back["alive"], alive)
+    assert back["mask"].dtype == torch.bool and back["mask"].is_cuda
+    assert torch.equal(back["mask"], tree["mask"])
+    before = tkernel.fed_agg_grouped_cuda.launches
+    ref, killed, resumed, merges = resume.scenario_crash_and_resume(
+        "async", tmp_path, "cuda")
+    assert resume.holds(ref, killed, resumed)
+    assert tkernel.fed_agg_grouped_cuda.launches - before == merges
+
+
 def _rows(R, C, seed, cuda, dtype):
     """Normal rows over four decades of scale; rows 0-3 (when present)
     hold a NaN, a +inf, a -inf, and zeros only."""
