@@ -99,7 +99,36 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      tokens each: one flash launch per layer per admitted prefill, each
      first token equal to its solo prefill's; token agreement with solo
      generation is reported;
-  13. hold linrec against its plain version, bit for bit, over
+  13. paged serving at full width: `python -m repro_torch.launch.serve
+     --full --paged --batch 8 --prompt-len 512 --gen 32` through its main
+     (16 requests through PagedServeLoop's 8 slots, a pool of 273 blocks
+     of 16): every request drains with 32 tokens, the allocator's
+     invariants hold and every block is free or cached once drained, and
+     no flash_attention launch (the paged prefill attention is the
+     reference's plain route); chunk steps, decode steps, ms per decode
+     tick and peak memory printed;
+  14. paged against contiguous at full width: examples/serve_load's
+     shared-prefix parity trace on the virtual clock (tick 0.01 s)
+     through PagedServeLoop (its POOL: 4 slots, 48 x 8 blocks, chunks of
+     32; the allocator's invariants after every tick) and the contiguous
+     ServeLoop (384 positions), the logits behind every token recorded in
+     both: prefix blocks shared; while a paged stream agrees with its
+     contiguous one (whose first token is the request's solo prefill) the
+     two runs' logits lie within serve_load.FULL_LOGITS_TOL
+     (scale-relative; examples/parity_gap.py's readings set it), and a
+     stream parts only where the contiguous run's two best logits lie
+     within twice that step's difference (counted and printed, with the
+     share of contiguous steps so close);
+  15. contiguous chunked prefill into an int8 cache at full width: 2 x
+     2,048 through make_chunk_prefill_step in 4 chunks of 512 into a
+     head/int8 cache of 2,080 positions, then 8 decode steps: one
+     grouped quant8 quantise and dequantise per layer per chunk and per
+     step (624 each, added to the quant8 rows' launches), each call's K
+     and V bit-equal to the plain version on the same inputs; the last
+     chunk's logits within LM_LOGITS_TOL of a one-shot prefill's into
+     the same spec, the decode streams under phase 14's rule and
+     tolerance;
+  16. hold linrec against its plain version, bit for bit, over
      tests/test_kernels.py's shapes, odd T (1, 77, 1,000) and odd D (12,
      130), with and without a starting state, fp32 and bf16, on each route
      that takes the shape (column always, tma where TMA can describe it),
@@ -107,7 +136,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      recurrent models' prefill scans and a falcon decode step, in turns
      (the median of three readings a route), beside the bound and the plain version (no single PyTorch call
      computes it);
-  14. falcon-mamba-7b at full width (7.27 B params, bf16, drawn on the
+  17. falcon-mamba-7b at full width (7.27 B params, bf16, drawn on the
      card): `python -m repro_torch.launch.serve --arch falcon-mamba-7b
      --full --batch 4 --prompt-len 2048 --gen 32` through its main, which
      must launch linrec once per layer in the prefill (64, all on the tma
@@ -115,21 +144,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      kernel, each layer's scan held against the plain version on the same
      a, b (2e-4), and again through the plain version: last-position
      logits within 2e-2 scale-relative;
-  15. falcon-mamba-7b in a full-width ServeLoop (4 slots) draining 8
+  18. falcon-mamba-7b in a full-width ServeLoop (4 slots) draining 8
      requests of 3 to 2,047 prompt tokens, 16 new tokens each: one linrec
      launch per layer per admitted prefill and per decode step, each first
      token equal to its solo prefill's; agreement with solo generation is
      reported;
-  16. recurrentgemma-9b at full width (10.44 B params): `serve.py --arch
+  19. recurrentgemma-9b at full width (10.44 B params): `serve.py --arch
      recurrentgemma-9b --full --batch 2 --prompt-len 2048 --gen 32`, 26
      linrec and 12 flash launches (wgmma route) in the prefill and 26 linrec launches a
      decode step; then its 2 x 2,048 prefill's attention and scans held
      layer by layer against the plain versions, and its last-position
      logits against the plain run's: within 3.5e-2 (see LM_LOGITS_TOL);
-  17. print the kernel table as JSON, then the result line.
+  20. print the kernel table as JSON, then the result line.
 
-Each model is freed before the next one is drawn (40.6, 14.6, then 20.9
-GB of weights).
+Each model is freed before the next one is drawn (40.6 GB of weights
+for phases 11-12 and again for 13-15, then 14.6 and 20.9 GB).
 """
 from __future__ import annotations
 
@@ -257,6 +286,13 @@ LM_LOGITS_TOL = {"granite-20b": 2e-2, "falcon-mamba-7b": 2e-2,
                  "recurrentgemma-9b": 3.5e-2}
 LOOP_LENGTHS = (1, 77, 300, 1000, 2047, 513, 64, 1500)
 LOOP_SLOTS, LOOP_MAX_LEN, LOOP_NEW = 4, 4096, 16
+# paged serving through serve.py --paged: batch slots, prompt, new tokens
+# (2 x batch requests; the pool sized batch x (prompt + gen) + one block)
+PAGED_BATCH, PAGED_PROMPT, PAGED_GEN = 8, 512, 32
+# contiguous chunked prefill into an int8 cache: batch, prompt, chunk,
+# cache positions, decode steps after it
+CHUNK_BATCH, CHUNK_PROMPT, CHUNK_LEN, CHUNK_CACHE, CHUNK_STEPS = \
+    2, 2048, 512, 2080, 8
 # linrec sweep (B, T, D): test_kernels.py's three shapes, then odd T and D
 LR_SWEEP = [(1, 128, 128), (2, 512, 640), (3, 256, 512), (2, 1, 130),
             (2, 77, 12), (1, 1000, 130), (3, 77, 4096), (2, 1000, 12)]
@@ -1082,6 +1118,235 @@ def lm_serve_loop(torch, model, params, lengths):
     return launches
 
 
+def paged_serve(torch, card: str):
+    """serve.py --paged at full width through its main, counted from zero;
+    -> its result and the launches of each kernel in it."""
+    from repro_torch.launch import serve
+    torch.cuda.reset_peak_memory_stats()
+    for fn in serve.KERNELS.values():
+        fn.launches = 0
+        fn.routes.update(dict.fromkeys(fn.routes, 0))
+    t0 = time.perf_counter()
+    res = serve.main(["--full", "--paged", "--batch", str(PAGED_BATCH),
+                      "--prompt-len", str(PAGED_PROMPT), "--gen",
+                      str(PAGED_GEN)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in serve.KERNELS.items()}
+    loop, nb = res["loop"], res["pool"][0]
+    check(res["requests"] == 2 * PAGED_BATCH and all(
+        len(r.out) == PAGED_GEN and r.done for r in res["done"]),
+        f"paged serve: {res['requests']} requests, lengths "
+        f"{[len(r.out) for r in res['done']]}")
+    loop.alloc.check_invariants()
+    check(not loop.alloc.tables and loop.alloc.n_free() == nb
+          and not any(loop.alloc.ref),
+          f"paged serve: {loop.alloc.n_free()} of {nb} blocks free or "
+          "cached once drained")
+    check(launches == {"flash_attention": 0, "linrec": 0},
+          f"paged serve: kernel launches {launches}; its prefill attention "
+          "is the reference's plain route, so none is expected")
+    for r in res["done"]:
+        check(min(r.out) >= 0 and max(r.out) < res["model"].cfg.vocab_size,
+              f"paged serve: request {r.rid} generated ids out of range")
+    print(f"paged serve {LM_ARCH} full width ({card}): "
+          f"{res['requests']} requests x {PAGED_GEN} tokens, pool "
+          f"{nb}x{res['pool'][1]} ({nb * res['pool'][1]} positions), "
+          f"{res['chunk_steps']} chunk steps, {res['decode_steps']} decode "
+          f"steps, {res['decode_tick_ms']:.2f} ms per decode tick, "
+          f"{res['tok_per_s']:.1f} tok/s, shared {res['shared_blocks']} "
+          f"blocks, {res['preemptions']} preemptions, flash_attention "
+          f"launches {launches['flash_attention']}, peak memory "
+          f"{res['peak_gb']:.2f} GB, {wall:.1f} s wall", flush=True)
+    return res, launches
+
+
+def paged_vs_contiguous(torch, model, params, card: str) -> dict:
+    """examples/serve_load's shared-prefix parity trace on the virtual
+    clock at full width, through PagedServeLoop (invariants after every
+    tick) and the contiguous ServeLoop, the logits behind every token
+    recorded in both: held within serve_load.FULL_LOGITS_TOL of each
+    other while the streams agree (the contiguous loop's first token is
+    the request's solo prefill), partings only at near-ties."""
+    from repro_torch.examples import serve_load
+    from repro_torch.launch import loadgen
+    tol = serve_load.FULL_LOGITS_TOL
+    trace = loadgen.generate(serve_load._load_cfg(model.cfg.vocab_size,
+                                                  shared=True))
+    t0 = time.perf_counter()
+    res = serve_load.parity(model, params, trace, tol=tol,
+                            on_tick=lambda lp: lp.alloc.check_invariants())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(res["shared_blocks"] > 0, "parity trace shared no prefix block")
+    check(res["mismatches"] == 0, f"paged vs contiguous: "
+          f"{res['mismatches']} streams flagged {res['verdicts']}; logits "
+          f"up to {res['logits_diff']} apart while the streams agree "
+          f"(tol {tol})")
+    chunks, ticks = res["paged_steps"]
+    print(f"paged vs contiguous {LM_ARCH} full width ({card}), pool "
+          f"{serve_load.POOL}, {res['n_requests']} requests on the virtual "
+          f"clock: shared {res['shared_blocks']} blocks, "
+          f"{res['preemptions']} preemptions, {chunks} chunk steps and "
+          f"{ticks} decode ticks (contiguous: "
+          f"{res['contiguous_decode_steps']}); logits scale-relative max "
+          f"|diff| while the streams agree {res['logits_diff']:.4g}, at "
+          f"first tokens {res['first_token_diff']:.4g} (tol {tol}); first "
+          f"tokens equal to the solo prefill's {res['first_equal']}/"
+          f"{res['n_requests']}; streams parting at a near-tie "
+          f"{res['near_tie_streams']}, flagged {res['mismatches']}; "
+          f"contiguous steps within twice the largest |diff| of a tie "
+          f"{res['near_tie_share']:.2%}; {res['tokens_agree']}/"
+          f"{res['tokens']} tokens agree; {wall:.1f} s wall", flush=True)
+    return res
+
+
+def res_device(params):
+    """The device the params lie on (the card)."""
+    from repro_torch.tree import leaves
+    return leaves(params)[0].device
+
+
+def chunked_int8(torch, model, params, card: str) -> dict:
+    """A CHUNK_BATCH x CHUNK_PROMPT batch through make_chunk_prefill_step
+    in chunks of CHUNK_LEN into a head/int8 cache of CHUNK_CACHE
+    positions, then CHUNK_STEPS decode steps, quant8 counted from zero
+    around them and each of its grouped calls held bit for bit against
+    the plain version on the same inputs (ref.py, at this path's shapes);
+    against a one-shot prefill into the same spec and its own decode
+    steps, under serve_load.divergence."""
+    import dataclasses
+    from repro_torch.examples import serve_load
+    from repro_torch.kernels.quant8 import kernel as q8
+    from repro_torch.kernels.quant8 import ops as q8ops
+    from repro_torch.launch.steps import (make_chunk_prefill_step,
+                                          make_decode_step)
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    tol = LM_LOGITS_TOL[LM_ARCH]
+    spec = build_model(dataclasses.replace(model.cfg,
+                                           cache_spec="head/int8"))
+    rec = serve_load.LogitsRecorder(spec)
+    chunk, decode = make_chunk_prefill_step(rec), make_decode_step(rec)
+    B, T, C, L = CHUNK_BATCH, CHUNK_PROMPT, CHUNK_LEN, model.cfg.num_layers
+    dev = res_device(params)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, model.cfg.vocab_size, (B, T)).astype(np.int32), device=dev)
+
+    def steps(nxt, cache):
+        out, rows = [nxt.cpu()], [rec.logits[:, -1].float()]
+        for i in range(CHUNK_STEPS):
+            nxt, cache = decode(params, {
+                "tokens": nxt[:, None].to(torch.int32),
+                "positions": torch.full((B, 1), T + i, dtype=torch.int32,
+                                        device=dev)}, cache)
+            rows.append(rec.logits[:, -1].float())
+            out.append(nxt.cpu())
+        return torch.stack(out, 1).tolist(), rows
+
+    # every grouped call of the path beside its plain version; the
+    # differences stay on the card until the run ends
+    held = {"quantize": [], "dequantize": []}    # (rows, max |diff|)
+    quantize, dequantize = (q8ops.quantize_rows_grouped,
+                            q8ops.dequantize_rows_grouped)
+
+    def checked_quantize(xs, *, impl="auto"):
+        out = quantize(xs, impl=impl)
+        for (q, sc), (qr, sr) in zip(out, quantize(xs, impl="ref")):
+            held["quantize"].append((q.shape[0], torch.maximum(
+                (q.int() - qr.int()).abs().max().float(),
+                (sc - sr).abs().max())))
+        return out
+
+    def checked_dequantize(qs, ss, *, out_dtype=torch.float32,
+                           impl="auto"):
+        out = dequantize(qs, ss, out_dtype=out_dtype, impl=impl)
+        want = dequantize(qs, ss, out_dtype=out_dtype, impl="ref")
+        for o, w in zip(out, want):
+            held["dequantize"].append(
+                (o.shape[0], (o.float() - w.float()).abs().max()))
+        return out
+
+    cache = tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
+                                           device=dev),
+                     spec.cache_defs(B, CHUNK_CACHE))
+    q8.quantize_grouped_cuda.launches = 0
+    q8.dequantize_grouped_cuda.launches = 0
+    q8ops.quantize_rows_grouped = checked_quantize
+    q8ops.dequantize_rows_grouped = checked_dequantize
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(0, T, C):
+            nxt, cache = chunk(params, {
+                "tokens": toks[:, pos:pos + C],
+                "positions": torch.arange(pos, pos + C, dtype=torch.int32,
+                                          device=dev)[None].expand(B, C),
+                "last_index": torch.full((B,), C - 1, dtype=torch.int32,
+                                         device=dev)}, cache)
+        torch.cuda.synchronize()
+        t_chunks = time.perf_counter() - t0
+        got, got_rows = steps(nxt, cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        q8ops.quantize_rows_grouped = quantize
+        q8ops.dequantize_rows_grouped = dequantize
+    launches = {"quantize": q8.quantize_grouped_cuda.launches,
+                "dequantize": q8.dequantize_grouped_cuda.launches}
+    want_n = L * (T // C + CHUNK_STEPS)
+    check(launches == {"quantize": want_n, "dequantize": want_n},
+          f"chunked int8 prefill + {CHUNK_STEPS} steps: quant8 launches "
+          f"{launches}; one grouped quantise (cache.write_kv) and one "
+          f"grouped dequantise (cache.read_kv) per layer per chunk and step: "
+          f"{want_n} each")
+    errs, shapes = {}, {}
+    for name, calls in held.items():
+        # K and V: two leaves a call
+        check(len(calls) == 2 * want_n, f"chunked int8: {len(calls)} "
+              f"{name} leaves held against the plain version, expected "
+              f"{2 * want_n}")
+        errs[name] = float(torch.stack([e for _, e in calls]).max())
+        shapes[name] = sorted({r for r, _ in calls})
+        check(errs[name] == 0.0, f"chunked int8: quant8 {name} vs plain "
+              f"max |diff| {errs[name]} at rows {shapes[name]}")
+    chunk_logits = got_rows[0]
+    check(bool(torch.isfinite(chunk_logits).all()),
+          "chunked prefill: non-finite logits")
+    del cache
+    with torch.no_grad():
+        one_logits, one_cache = spec.apply(params, {"tokens": toks},
+                                           mode="prefill")
+    rec.logits = one_logits
+    want, want_rows = steps(torch.argmax(one_logits[:, -1].float(), -1),
+                            one_cache)
+    del one_cache
+    rel = serve_load.scale_relative(chunk_logits, want_rows[0])
+    check(rel <= tol, f"chunked vs one-shot int8 prefill logits: "
+          f"scale-relative max |diff| {rel} > {tol}")
+    verdicts = [serve_load.divergence(
+        got[b], want[b], [r[b] for r in got_rows], [r[b] for r in want_rows],
+        serve_load.FULL_LOGITS_TOL) for b in range(B)]
+    check(all(kind != "mismatch" for kind, _ in verdicts),
+          f"chunked vs one-shot decode streams {verdicts}: {got} vs {want}")
+    agree = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+    print(f"contiguous chunked prefill {LM_ARCH} full width ({card}): "
+          f"{B}x{T} in {T // C} chunks of {C} into head/int8 "
+          f"({CHUNK_CACHE} positions) in {t_chunks * 1e3:.1f} ms, then "
+          f"{CHUNK_STEPS} decode steps; quant8 launches {launches} "
+          f"({L} layers x ({T // C} chunks + {CHUNK_STEPS} steps)), each "
+          f"held against the plain version: quantise rows {shapes['quantize']}"
+          f" max |diff| {errs['quantize']}, dequantise rows "
+          f"{shapes['dequantize']} max |diff| {errs['dequantize']}; last "
+          f"chunk vs one-shot prefill logits scale-relative max |diff| "
+          f"{rel:.4g} (tol {tol}); decode streams "
+          f"{[(k, round(d, 4)) for k, d in verdicts]}, {agree}/"
+          f"{B * (CHUNK_STEPS + 1)} tokens agree; {wall:.1f} s wall",
+          flush=True)
+    return {"launches": launches, "logits_rel": rel, "max_abs_err": errs,
+            "streams": verdicts}
+
+
 def linrec_sweep(torch):
     """linrec vs its plain version over LR_SWEEP x dtype x (zero, random
     h0), bit for bit, on each route that takes the shape (column always,
@@ -1616,21 +1881,37 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
 
-    # 13. linrec vs plain version (launches here are not the path's)
+    # 13. paged serving through serve.py --paged at full width, counted
+    #     from zero; 14. paged against contiguous on the parity trace;
+    #     15. contiguous chunked prefill into an int8 cache, quant8
+    #     counted from zero
+    t0 = time.perf_counter()
+    res, paged_launches = paged_serve(torch, card)
+    model, params = res["model"], res["params"]
+    del res
+    paged_vs_contiguous(torch, model, params, card)
+    chunk_res = chunked_int8(torch, model, params, card)
+    chunk_q8 = chunk_res["launches"]
+    print(f"paged and chunked phases: {time.perf_counter() - t0:.1f} s "
+          f"({card})", flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+
+    # 16. linrec vs plain version (launches here are not the path's)
     lr_main = linrec_sweep(torch)
 
-    # 14. falcon-mamba-7b at full width, counted from zero
+    # 17. falcon-mamba-7b at full width, counted from zero
     res, ssm_launches, ssm_peak = lm_serve(torch, SSM_ARCH, SSM_BATCH)
     model, params = res["model"], res["params"]
     del res
     lm_kernel_vs_plain(torch, model, params)
 
-    # 15. falcon-mamba-7b in the ServeLoop, counted from zero
+    # 18. falcon-mamba-7b in the ServeLoop, counted from zero
     ssm_loop_launches = lm_serve_loop(torch, model, params, SSM_LOOP_LENGTHS)
     del model, params
     torch.cuda.empty_cache()
 
-    # 16. recurrentgemma-9b at full width, counted from zero
+    # 19. recurrentgemma-9b at full width, counted from zero
     res, hybrid_launches, hybrid_peak = lm_serve(torch, HYBRID_ARCH,
                                                  HYBRID_BATCH)
     model, params = res["model"], res["params"]
@@ -1639,7 +1920,7 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
 
-    # 17. results
+    # 20. results
     # fed_agg on its main path: one grouped launch over the async merge's
     # tree; library_ms is one einsum over the same elements as a (2, N)
     # stack (the sweep's (2, 20,490) row), which no tree call has
@@ -1670,7 +1951,13 @@ def main() -> int:
             "name": f"quant8_{name}", "route": "cuda",
             "source": "src/repro_torch/kernels/quant8/csrc/quant8.cu",
             "replaces": f"src/repro/kernels/quant8/kernel.py:{line}",
-            "launches": q8_launches[name], "max_abs_err": t["max_abs_err"],
+            # the exchange path's and the chunked int8 prefill's
+            "launches": q8_launches[name] + chunk_q8[name],
+            "launches_by_path": {"exchange": q8_launches[name],
+                                 "chunked_int8_prefill": chunk_q8[name]},
+            # the exchange's group and every call of the chunked prefill
+            "max_abs_err": max(t["max_abs_err"],
+                               chunk_res["max_abs_err"][name]),
             **({"overhead_launches":
                 paper_launches["overhead"]["quant8_quantize"]}
                if name == "quantize" else {}),
@@ -1709,8 +1996,10 @@ def main() -> int:
     print(f"quant8 sweep: {len(q8_rows)} shapes x 2 kernels, all bit-equal",
           flush=True)
     print(f"launches: {LM_ARCH} serve {lm_launches}, ServeLoop "
-          f"{loop_launches}; {SSM_ARCH} serve {ssm_launches}, ServeLoop "
-          f"{ssm_loop_launches}; {HYBRID_ARCH} serve {hybrid_launches}. "
+          f"{loop_launches}, paged serve {paged_launches}, chunked int8 "
+          f"prefill quant8 {chunk_q8}; {SSM_ARCH} serve {ssm_launches}, "
+          f"ServeLoop {ssm_loop_launches}; {HYBRID_ARCH} serve "
+          f"{hybrid_launches}. "
           f"Serve peak memory: {LM_ARCH} {lm_peak:.2f} GB, {SSM_ARCH} "
           f"{ssm_peak:.2f} GB, {HYBRID_ARCH} {hybrid_peak:.2f} GB",
           flush=True)

@@ -39,13 +39,16 @@ LAYERS = ((LocalTrainer, "train_checked", "local training"),
 
 
 @contextlib.contextmanager
-def layer_times(layers=LAYERS, device="cuda"):
+def layer_times(layers=LAYERS, device="cuda", *, ranges=False):
     """Time each (owner, attribute, label) of `layers` -- a class's method
     or a module's function -- in every run inside the block, between
     synchronisations -> a bucket of seconds by label.  A layer's time is
     its self time: layers nested inside it are taken out.  "engine" (the
     rest: the engine's own code, selection, host) and "total" are filled
-    in on exit."""
+    in on exit.  With ranges=True each layer runs inside a torch.profiler
+    range of its label instead, with no synchronisation, and the bucket
+    stays empty: `range_split` reads the device time by range from a
+    `profiled` run inside the block."""
     # imported here: --merge reads older trees, whose runtime lacks it
     from repro_torch.runtime import synchronize
     bucket: dict[str, float] = collections.defaultdict(float)
@@ -65,9 +68,16 @@ def layer_times(layers=LAYERS, device="cuda"):
                 inner[0] = outer + spent
         return wrapped
 
+    def ranged(fn, label):
+        def wrapped(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    wrap = ranged if ranges else timed
     saved = [(owner, name, vars(owner)[name]) for owner, name, _ in layers]
     for owner, name, label in layers:
-        setattr(owner, name, timed(getattr(owner, name), label))
+        setattr(owner, name, wrap(getattr(owner, name), label))
     synchronize(device)
     t0 = time.perf_counter()
     try:
@@ -77,8 +87,9 @@ def layer_times(layers=LAYERS, device="cuda"):
         total = time.perf_counter() - t0
         for owner, name, fn in saved:
             setattr(owner, name, fn)
-        bucket["engine"] = total - sum(bucket.values())
-        bucket["total"] = total
+        if not ranges:
+            bucket["engine"] = total - sum(bucket.values())
+            bucket["total"] = total
 
 
 def report(label: str, bucket: dict[str, float]):
@@ -89,17 +100,43 @@ def report(label: str, bucket: dict[str, float]):
     print(f"{label}: {total:.3f} s wall; {parts}", flush=True)
 
 
-def device_profile(run):
-    """run() under torch.profiler -> (wall s, CUDA kernels by device time)."""
+def profiled(run):
+    """run() under torch.profiler, from a synchronised start to a
+    synchronised end -> (wall s, the profiler)."""
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return wall, prof
+
+
+def device_profile(run):
+    """run() under torch.profiler -> (wall s, CUDA kernels by device time)."""
+    wall, prof = profiled(run)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     return wall, sorted(kernels, key=lambda e: -e.self_device_time_total)
+
+
+def range_split(prof, labels, other=lambda event: "rest") -> dict:
+    """Device seconds of a profiled run by range: each operation's own
+    kernels go to the innermost range of `labels` around it (layer_times
+    with ranges=True opens them), else to other(operation)'s label."""
+    split = collections.defaultdict(float)
+    for e in prof.events():
+        t = e.self_device_time_total / 1e6
+        if t <= 0 or e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        label, parent = None, e
+        while parent is not None and label is None:
+            if parent.name in labels:
+                label = parent.name
+            parent = parent.cpu_parent
+        split[label if label is not None else other(e)] += t
+    return split
 
 
 def merge_calls(n: int = 1000, repeats: int = 5):

@@ -1,5 +1,6 @@
-"""Batched serving launcher: prefill a batch of prompts, decode greedily.
-Port of the fixed-batch path of `repro.launch.serve`.
+"""Batched serving launcher: prefill a batch of prompts, decode greedily,
+or (`--paged`) serve them through the block-table paged continuous-
+batching loop.  Port of `repro.launch.serve`.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
   PYTHONPATH=src python -m repro_torch.launch.serve --full \\
@@ -8,6 +9,9 @@ Port of the fixed-batch path of `repro.launch.serve`.
       --arch falcon-mamba-7b --batch 4 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --full \\
       --arch recurrentgemma-9b --batch 2 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --paged \\
+      --batch 8 --prompt-len 512 --gen 32          # granite-20b, paged
 
 `--smoke` (the default) serves the arch's small config with the
 reference's Threefry-drawn params; `--full` serves the published width
@@ -19,8 +23,17 @@ step); the script prints the prefill and decode times and rates, the
 launches of each kernel in the prefill and per decode step, and on a card
 the peak device memory.  The reference's weight-layout policy
 (`--layout`, `pick_layout`) belongs to the planning layer; this launcher
-prints the cache spec it serves with in its place.  `--paged` waits for
-the paged slice.
+prints the cache spec it serves with in its place.
+
+`--paged` (dense LMs) serves 2 x batch requests of `--prompt-len` random
+tokens through `PagedServeLoop` with `--batch` slots: they join as slots
+free up, the prompts stream through the block pool in chunks of
+max(4 x block size, 32), and the pool (`--num-blocks` of `--block-size`
+positions) defaults to batch x (prompt + gen) positions plus one block,
+as in the reference.  It prints the requests, tokens, tok/s, the pool,
+the shared blocks and preemptions, the chunk and decode steps, ms per
+decode tick and the kernel launches (the paged prefill attention is the
+reference's plain route: no flash_attention launch).
 """
 from __future__ import annotations
 
@@ -35,6 +48,7 @@ from repro_torch import threefry
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.linrec.kernel import linrec_cuda
+from repro_torch.launch.serve_loop import PagedServeLoop, Request
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import build_model
 from repro_torch.models.cache import CacheSpec
@@ -77,6 +91,14 @@ def main(argv=None) -> dict:
                          "ring:4/int8, head/bf16); 'auto' keeps the "
                          "config's (models/cache.py)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve through the block-table paged "
+                         "continuous-batching loop (PagedServeLoop) "
+                         "instead of the fixed-batch prefill+decode path")
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--num-blocks", type=int, default=0,
+                    help="KV block pool size (default: sized so the pool "
+                         "covers batch x (prompt+gen))")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -98,6 +120,9 @@ def main(argv=None) -> dict:
         if model.supports_cache_spec else f"{cfg.family} state"
     print(f"[serve] {cfg.name}: {model.n_params / 1e9:.2f} B params on "
           f"{device} (drawn in {t_init:.1f} s), cache {cache_kind}")
+
+    if args.paged:
+        return _serve_paged(args, model, params, device, t_init)
 
     prefill = make_prefill_step(model)
     decode = make_decode_step(model)
@@ -135,10 +160,7 @@ def main(argv=None) -> dict:
           f"({t_dec * 1e3 / steps:.2f} ms/step, "
           f"{B * (args.gen - 1) / max(t_dec, 1e-9):.0f} tok/s); kernel "
           f"launches per step {_show(dec_launches, steps)}")
-    peak = None
-    if device.type == "cuda":
-        peak = torch.cuda.max_memory_allocated(device) / 1e9
-        print(f"[serve] peak device memory {peak:.2f} GB")
+    peak = _peak_gb(device)
     print(f"[serve] sample generations (first 12 ids): "
           f"{toks[:, :12].tolist()}")
     return {"model": model, "params": params, "tokens": toks,
@@ -146,6 +168,59 @@ def main(argv=None) -> dict:
             "decode_s": t_dec, "decode_steps": args.gen - 1,
             "launches": {"prefill": pre_launches, "decode": dec_launches},
             "peak_gb": peak, "init_s": t_init}
+
+
+def _peak_gb(device):
+    if device.type != "cuda":
+        return None
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    print(f"[serve] peak device memory {peak:.2f} GB")
+    return peak
+
+
+def _serve_paged(args, model, params, device, t_init) -> dict:
+    """2 x batch requests through PagedServeLoop, drained tick by tick;
+    the ticks that ran no prefill chunk are the decode ticks timed."""
+    rng = np.random.default_rng(args.seed)
+    B, T, bs = args.batch, args.prompt_len, args.block_size
+    nb = args.num_blocks or -(-(B * (T + args.gen) + bs) // bs)
+    loop = PagedServeLoop(model, params, max_batch=B, num_blocks=nb,
+                          block_size=bs, chunk=max(bs * 4, 32))
+    for i in range(2 * B):   # oversubscribe: requests join mid-flight
+        loop.submit(Request(rid=i, prompt=rng.integers(
+            0, model.cfg.vocab_size, T).astype(np.int32), max_new=args.gen))
+    before = _counts()
+    done, decode_ticks = [], []
+    t0 = time.perf_counter()
+    while loop.live or loop.queue:
+        chunks, t = loop.chunk_steps, time.perf_counter()
+        done += loop.tick()          # ends in a copy of the tokens: synced
+        if loop.chunk_steps == chunks:
+            decode_ticks.append(time.perf_counter() - t)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = _since(before)
+    toks = sum(len(r.out) for r in done)
+    tick_ms = 1e3 * sum(decode_ticks) / max(len(decode_ticks), 1)
+    stats = loop.alloc.stats
+    print(f"[serve] paged loop: {len(done)} reqs, {toks} tokens in "
+          f"{wall * 1e3:.1f}ms ({toks / max(wall, 1e-9):.0f} tok/s); pool "
+          f"{nb}x{bs}, shared {stats['shared_blocks']} blocks, "
+          f"{loop.preemptions} preemptions; {loop.chunk_steps} chunk steps, "
+          f"{loop.decode_steps} decode steps ({tick_ms:.2f} ms per decode "
+          f"tick over {len(decode_ticks)}); kernel launches "
+          f"{_show(launches)}")
+    peak = _peak_gb(device)
+    print(f"[serve] sample generations (first 12 ids): "
+          f"{[r.out[:12] for r in done[:4]]}")
+    return {"model": model, "params": params, "loop": loop, "done": done,
+            "requests": len(done), "tokens_out": toks, "wall_s": wall,
+            "tok_per_s": toks / max(wall, 1e-9), "pool": (nb, bs),
+            "shared_blocks": stats["shared_blocks"],
+            "preemptions": loop.preemptions,
+            "chunk_steps": loop.chunk_steps,
+            "decode_steps": loop.decode_steps, "decode_tick_ms": tick_ms,
+            "launches": launches, "peak_gb": peak, "init_s": t_init}
 
 
 if __name__ == "__main__":

@@ -1,19 +1,33 @@
-"""Continuous-batching serve loop over a CONTIGUOUS cache, port of
-`repro.launch.serve_loop.ServeLoop`.
+"""Continuous-batching serve loops, port of `repro.launch.serve_loop`.
 
-A fixed pool of B slots shares one batched KV cache sized B x max_len;
-requests join mid-flight (a prefill of the request alone, written into a
-free slot), one batched decode step runs for ALL slots each tick with
-per-slot positions, and finished slots are recycled.  Greedy decode is
-token-identical to serving each request alone (tests/test_torch_serve.py).
-It serves the dense family and the SSM (falcon-mamba), whose per-slot
-conv windows and states are written into the batched cache the same way;
-the hybrid (recurrentgemma) is served on the fixed-batch path only, as the
-reference's loop cannot serve its nested cache.
+Two cache disciplines behind one Request/submit/tick API:
+
+* ``ServeLoop`` -- the CONTIGUOUS cache: a fixed pool of B slots shares
+  one batched KV cache sized B x max_len; requests join mid-flight (a
+  prefill of the request alone, written into a free slot), one batched
+  decode step runs for ALL slots each tick with per-slot positions, and
+  finished slots are recycled.  Greedy decode is token-identical to
+  serving each request alone (tests/test_torch_serve.py).  It serves the
+  dense family and the SSM (falcon-mamba), whose per-slot conv windows
+  and states are written into the batched cache the same way; the hybrid
+  (recurrentgemma) is served on the fixed-batch path only, as the
+  reference's loop cannot serve its nested cache.
+
+* ``PagedServeLoop`` -- the BLOCK-TABLE PAGED cache (dense LMs): one KV
+  block pool shared by all slots (core/paging.py: free list, refcounts,
+  prefix sharing), per-slot block tables mapping position -> (block,
+  offset), block-aligned chunked prefill whose tail pads to a power-of-two
+  bucket, lazy block growth during decode, and preemption (requeue the
+  youngest sequence) when the pool runs dry.  Only the pool lives on the
+  device between ticks; tables and lengths are rebuilt from host state
+  every step.  Its prefill attention is the reference's plain route
+  (layers.paged_chunk_attention, P rounded to bf16), the contiguous
+  prefill's the flash_attention kernel (P in fp32), so the two loops'
+  greedy streams agree except where the two best logits nearly tie
+  (tests/test_torch_paged.py).
 
 The reference's layout/mesh plumbing (`mesh=`, `layout=`, the policy's
-cache-spec choice) belongs to the planning layer and waits for it; the
-block-table `PagedServeLoop` waits for the paged slice (core/paging).
+cache-spec choice) belongs to the planning layer and waits for it.
 """
 from __future__ import annotations
 
@@ -22,7 +36,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.core.paging import BlockAllocator, OutOfBlocks
+from repro_torch.launch.steps import (make_chunk_prefill_step,
+                                      make_decode_step, make_prefill_step)
 from repro_torch.tree import leaves, tree_map
 
 
@@ -155,4 +171,193 @@ class ServeLoop(_ServeBase):
                 finished.append(req)
                 del self.live[slot]
                 self.free.append(slot)
+        return finished
+
+
+def _bucket(n: int) -> int:
+    """Next power of two >= n: a tail prefill chunk pads to a bucket, so
+    the chunk shapes stay O(log chunk) in number."""
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+class PagedServeLoop(_ServeBase):
+    """Block-table paged KV cache + chunked/bucketed prefill (see module
+    docstring).  ``num_blocks * block_size`` cache positions are shared by
+    up to ``max_batch`` concurrent sequences; the device pool holds one
+    more block, the sink of dropped writes (layers.paged_kv_write)."""
+
+    def __init__(self, model, params, *, max_batch: int = 4,
+                 num_blocks: int = 64, block_size: int = 16,
+                 chunk: int = 64):
+        if not model.supports_paged_cache:
+            raise ValueError(
+                f"{model.cfg.name}: paged serving needs a growing KV cache "
+                f"(family={model.cfg.family}); use ServeLoop")
+        if chunk % block_size:
+            raise ValueError(f"chunk {chunk} must be a multiple of the "
+                             f"block size {block_size}")
+        super().__init__(model, params, max_batch=max_batch)
+        self.alloc = BlockAllocator(num_blocks, block_size)
+        self.bs = block_size
+        self.nbmax = num_blocks            # a table can never exceed the pool
+        self.chunk = chunk
+        defs = model.paged_cache_defs(max_batch, num_blocks, block_size,
+                                      self.nbmax)
+        # only the block pool lives on the device between ticks; tables
+        # and lengths are rebuilt from host state every step
+        self.pages = {k: torch.zeros(defs[k].shape, dtype=defs[k].dtype,
+                                     device=self.device)
+                      for k in ("kp", "vp")}
+        self.bt = np.zeros((max_batch, self.nbmax), np.int32)
+        self._seq_of_slot: dict[int, int] = {}
+        self._admit_order: list[int] = []   # slots, oldest first
+        self._seq_counter = 0
+        self.preemptions = 0
+        self._decode = make_decode_step(model)
+        self._chunk_prefill = make_chunk_prefill_step(model)
+        self.decode_steps = 0     # batched decode steps run so far
+        self.chunk_steps = 0      # prefill chunks run so far
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    # -- admission -------------------------------------------------------
+    def _admit(self):
+        while self.queue and self.free:
+            req = self.queue[0]
+            prompt = np.asarray(req.prompt, np.int32)
+            T = len(prompt)
+            if (T + 1 + self.bs - 1) // self.bs > self.alloc.num_blocks:
+                raise RuntimeError(
+                    f"prompt of {T} tokens can never fit the "
+                    f"{self.alloc.num_blocks}x{self.bs} block pool")
+            sid = self._seq_counter
+            try:
+                res = self.alloc.admit(sid, prompt.tolist(), reserve=1)
+            except OutOfBlocks:
+                if not self.live and not self._preempt_youngest(protect=-1):
+                    raise RuntimeError(
+                        "admission stalled with no live sequences: "
+                        "block pool exhausted by the prefix cache?")
+                return                     # head-of-line waits for blocks
+            self._seq_counter += 1
+            self.queue.pop(0)
+            slot = self.free.pop(0)
+            self._seq_of_slot[slot] = sid
+            self._admit_order.append(slot)
+            self._set_table(slot, res.table)
+            nxt = self._prefill_chunks(slot, prompt, res.n_shared_tokens, T)
+            self._next[slot] = nxt
+            self.lengths[slot] = T
+            req.out.append(nxt)
+            self.live[slot] = req
+
+    def _set_table(self, slot: int, table: list[int]):
+        self.bt[slot] = 0
+        self.bt[slot, : len(table)] = table
+
+    def _prefill_chunks(self, slot: int, prompt: np.ndarray, start: int,
+                        T: int) -> int:
+        """Stream prompt positions [start, T) through the pool in
+        block-aligned chunks; the tail pads to a power-of-two bucket
+        (positions -1: writes dropped; logits taken at the last valid
+        row).  `start` skips positions covered by shared prefix blocks,
+        whose K/V is already resident.  -> the first generated token."""
+        bt_row = self._tensor(self.bt[slot: slot + 1])
+        pos = start
+        nxt = None
+        while pos < T:
+            c = min(self.chunk, T - pos)
+            cb = c if c == self.chunk else _bucket(c)
+            toks = np.zeros((1, cb), np.int32)
+            toks[0, :c] = prompt[pos: pos + c]
+            pv = np.full((1, cb), -1, np.int32)
+            pv[0, :c] = np.arange(pos, pos + c, dtype=np.int32)
+            nxt, self.pages = self._chunk_prefill(
+                self.params, {"tokens": self._tensor(toks),
+                              "positions": self._tensor(pv),
+                              "block_tables": bt_row,
+                              "last_index": self._tensor(
+                                  np.array([c - 1], np.int32))},
+                self.pages)
+            self.chunk_steps += 1
+            pos += c
+        return int(nxt[0])
+
+    # -- eviction / preemption -------------------------------------------
+    def _release(self, slot: int):
+        self.alloc.finish(self._seq_of_slot.pop(slot))
+        self._admit_order.remove(slot)
+        self.bt[slot] = 0
+        self.lengths[slot] = 0
+        self.free.append(slot)
+
+    def _preempt_youngest(self, protect: int) -> bool:
+        """Requeue the most recently admitted live sequence (other than
+        `protect`) at the FRONT of the queue, releasing its blocks.
+        Greedy decode is deterministic, so re-running it from the prompt
+        reproduces the same tokens."""
+        for slot in reversed(self._admit_order):
+            if slot == protect or slot not in self.live:
+                continue
+            req = self.live.pop(slot)
+            req.out = []
+            self.queue.insert(0, req)
+            self._release(slot)
+            self.preemptions += 1
+            return True
+        return False
+
+    def _grow_tables(self):
+        """Give every live slot a block for the position it writes this
+        tick, preempting the youngest sequences when the pool is dry."""
+        for slot in list(self.live):
+            if slot not in self.live:
+                continue
+            sid = self._seq_of_slot[slot]
+            while True:
+                try:
+                    if self.alloc.ensure_capacity(sid,
+                                                  int(self.lengths[slot])):
+                        self._set_table(slot, self.alloc.table(sid))
+                    break
+                except OutOfBlocks:
+                    if not self._preempt_youngest(protect=slot):
+                        raise RuntimeError(
+                            "block pool too small for a single sequence: "
+                            f"{self.alloc.num_blocks} x {self.bs}")
+
+    # -- main tick --------------------------------------------------------
+    def tick(self) -> list[Request]:
+        self._admit()
+        if not self.live:
+            return []
+        self._grow_tables()
+        # free slots decode at position -1: their K/V writes are dropped
+        # (layers.paged_kv_write) and their outputs ignored
+        positions = np.full((self.B, 1), -1, np.int32)
+        for slot in self.live:
+            positions[slot, 0] = self.lengths[slot]
+        L = self.model.cfg.num_layers
+        bt, pos = self._tensor(self.bt), self._tensor(positions)
+        cache = {**self.pages, "bt": bt.expand(L, *bt.shape),
+                 "len": pos[:, 0].expand(L, self.B)}
+        nxt, _ = self._decode(
+            self.params, {"tokens": self._next[:, None], "positions": pos},
+            cache)
+        self.decode_steps += 1
+        self._next = nxt.to(torch.int32)
+        nxt_host = nxt.cpu().numpy()
+        finished = []
+        for slot, req in list(self.live.items()):
+            self.lengths[slot] += 1
+            req.out.append(int(nxt_host[slot]))
+            if len(req.out) >= req.max_new:
+                req.done = True
+                finished.append(req)
+                del self.live[slot]
+                self._release(slot)
         return finished

@@ -1,6 +1,7 @@
 """Step factories, port of `repro.launch.steps`: the island exchange
 (`make_fl_aggregate`) and the serve steps (`make_prefill_step`,
-`make_decode_step`).  The train steps come with the training slice."""
+`make_chunk_prefill_step`, `make_decode_step`).  The train steps come with
+the training slice."""
 from __future__ import annotations
 
 from functools import partial
@@ -35,6 +36,22 @@ def make_prefill_step(model):
         next_tok = torch.argmax(logits[:, -1].float(), dim=-1)
         return next_tok, cache
     return prefill_step
+
+
+def make_chunk_prefill_step(model):
+    """One chunk of chunked prefill: (params, batch, cache) -> (greedy
+    next token (B,), cache).  `batch` carries the chunk's tokens, their
+    absolute positions and last_index (the last valid row of a padded
+    tail chunk); for the paged pool also block_tables.  `cache` is a
+    contiguous spec'd cache (models/cache.py) or the pool {kp, vp},
+    updated in place and consumed, as the JAX step donates it."""
+    @torch.no_grad()
+    def chunk_prefill_step(params, batch, cache):
+        logits, cache = model.apply(params, batch, mode="chunk_prefill",
+                                    cache=cache)
+        next_tok = torch.argmax(logits[:, -1].float(), dim=-1)
+        return next_tok, cache
+    return chunk_prefill_step
 
 
 def make_decode_step(model):

@@ -6,16 +6,16 @@ A CacheSpec is `layout[:shards]/dtype`:
   layout  "replicated" | "head" | "ring" | "paged" -- on one device the
           first two are the same cache; "ring" splits the sequence dim
           into `shards` segments that decode merges by log-sum-exp
-          (layers.ring_decode_attention); "paged" (the block pool,
-          core/paging) is a later slice.
+          (layers.ring_decode_attention); "paged" is the block pool
+          (core/paging.py, `paged_attention_cache_defs`).
   shards  ring only: the static segment count.  0 means the "model" mesh
           axis in the reference; one device has no mesh, so "ring:0" is
           one segment.
   dtype   "bf16", or "int8": rowwise-quantised K/V with one fp32 scale per
           (token, head) over head_dim, on the port's quant8 kernels.
 
-The mesh-side pieces of the reference (`resolve`, `cache_bytes`, the
-paged defs) wait for the planning layer and the paged slice.
+The mesh-side pieces of the reference (`resolve`, `cache_bytes`) wait
+for the planning layer.
 
 Caches are written IN PLACE: `write_kv` updates the preallocated tensors
 of the cache it is given and returns a new dict around the same tensors,
@@ -111,6 +111,25 @@ def attention_cache_defs(cfg, batch: int, seq_len: int,
         d["k_scale"] = pdef(sc, ax, dtype=torch.float32, init="zeros")
         d["v_scale"] = pdef(sc, ax, dtype=torch.float32, init="zeros")
     return d
+
+
+def paged_attention_cache_defs(cfg, batch, num_blocks, block_size,
+                               max_blocks_per_seq):
+    """Paged-cache leaves (per layer): one block POOL shared by ALL
+    sequences plus per-slot block tables and lengths.  Memory scales with
+    the pool (total tokens resident), not max_batch * max_len.  The pool
+    is bf16 only, as in the reference.  It holds num_blocks + 1 blocks:
+    the last is a sink for the writes of rows at position -1
+    (layers.paged_kv_write), which no block table names."""
+    kv = (num_blocks + 1, block_size, cfg.num_kv_heads, cfg.head_dim)
+    ax = (None, None, "kv_heads", None)
+    return {
+        "kp": pdef(kv, ax, dtype=torch.bfloat16, init="zeros"),
+        "vp": pdef(kv, ax, dtype=torch.bfloat16, init="zeros"),
+        "bt": pdef((batch, max_blocks_per_seq), ("batch", None),
+                   dtype=torch.int32, init="zeros"),
+        "len": pdef((batch,), ("batch",), dtype=torch.int32, init="zeros"),
+    }
 
 
 def quantize_kv(x, *, impl: str = "auto"):

@@ -6,12 +6,16 @@ Conventions (the reference's):
   * every layer is a plain function f(params_subtree, x, ...) -> y;
   * decode uses a cache + per-row positions.
 
-Self-attention over a whole sequence (train, prefill) goes to the
-`flash_attention` kernel for every length (`select_attention`); the
-reference's XLA routes (`attention_full`, the blockwise scans) are not
-ported.  The reference's `constrain(...)` sharding hints are no-ops on one
-device and are left out.  Kernel ops take `impl="auto"|"ref"`, threaded
-from `lm_apply`.
+Self-attention over a whole sequence (train, prefill: T == S, no query
+offset) goes to the `flash_attention` kernel for every length
+(`select_attention`).  Queries at an offset into their keys (contiguous
+chunk_prefill) take the reference's plain routes, as plain torch:
+`attention_full` up to 4,096 positions, the blockwise scans
+(`flash_attention_xla`, `flash_attention_xla_triangular`) above.  The
+paged cache (`paged_kv_write`, `paged_gather_kv`, `paged_chunk_attention`)
+is plain torch too, as the reference's is plain jnp.  The reference's
+`constrain(...)` sharding hints are no-ops on one device and are left
+out.  Kernel ops take `impl="auto"|"ref"`, threaded from `lm_apply`.
 """
 from __future__ import annotations
 
@@ -157,19 +161,212 @@ def ring_decode_attention(q, k_cache, v_cache, cache_len, *, segments):
     return out.to(q.dtype).reshape(B, 1, H, D)
 
 
-def select_attention(q, k, v, *, causal=True, window=0, impl="auto"):
-    """Self-attention over a whole sequence (T == S) runs on the
-    flash_attention kernel for CUDA tensors, at every length, and on its
-    plain version for CPU tensors.  The reference routes to XLA paths here
-    (attention_full up to 4,096 tokens, blockwise scans above); the kernel
-    computes the same function.  Queries at an offset into their keys
-    (contiguous chunk_prefill) need the XLA routes, which come back with
-    the paged slice."""
-    if q.shape[1] != k.shape[1]:
-        raise NotImplementedError(
-            "attention with T != S (chunk_prefill): the paged serving slice")
-    return flash_ops.flash_attention(q, k, v, causal=causal, window=window,
-                                     impl=impl)
+def attention_full(q, k, v, *, causal=True, window=0, q_offset=0):
+    """Exact attention with a materialised score matrix, the reference's
+    route up to 4,096 positions.  q: (B,T,H,D), k,v: (B,S,Hkv,D), GQA by
+    head grouping; query t sits at position t + q_offset (an int or a
+    0-d tensor).  Scores and softmax in fp32; the probabilities are
+    rounded to q's dtype before PV, where the reference rounds them (the
+    flash_attention kernel, the T == S route, keeps them fp32)."""
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, T, Hkv, G, D)
+    scale = 1.0 / math.sqrt(D)
+    scores = torch.einsum("bthgd,bshd->bhgts", qg.float(), k.float()) * scale
+    qpos = torch.arange(T, device=q.device) + q_offset
+    kpos = torch.arange(S, device=q.device)
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgts,bshd->bthgd", probs.float(), v.float())
+    return out.to(q.dtype).reshape(B, T, H, D)
+
+
+def _online_softmax(qblk, qpos, k, v, kv_blocks, kv_block, *, causal,
+                    window, out_dtype):
+    """One query block (B, Cq, Hkv, G, D) at positions qpos (Cq,) through
+    the online softmax over the kv blocks `kv_blocks`, at the
+    reference's rounding points: fp32 scores and statistics, P rounded
+    to the activation dtype before PV, each block's PV rounded to it too,
+    fp32 accumulator.  -> (B, Cq, Hkv, G, D)."""
+    B, Cq, Hkv, G, D = qblk.shape
+    scale = 1.0 / math.sqrt(D)
+    m = torch.full((B, Hkv, G, Cq), -math.inf, device=qblk.device)
+    l = torch.zeros((B, Hkv, G, Cq), device=qblk.device)
+    acc = torch.zeros((B, Hkv, G, Cq, D), device=qblk.device)
+    for jb in kv_blocks:
+        kblk = k[:, jb * kv_block:(jb + 1) * kv_block]
+        vblk = v[:, jb * kv_block:(jb + 1) * kv_block]
+        kpos = jb * kv_block + torch.arange(kv_block, device=qblk.device)
+        s = torch.einsum("bthgd,bshd->bhgts", qblk.float(),
+                         kblk.float()) * scale
+        msk = torch.ones((Cq, kv_block), dtype=torch.bool,
+                         device=qblk.device)
+        if causal:
+            msk &= kpos[None, :] <= qpos[:, None]
+        if window:
+            msk &= kpos[None, :] > qpos[:, None] - window
+        s = torch.where(msk, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhgts,bshd->bhgtd", p.to(out_dtype).float(),
+                          vblk.float()).to(out_dtype)
+        acc = acc * corr[..., None] + pv.float()
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    # (B,Hkv,G,Cq,D) -> (B,Cq,Hkv,G,D)
+    return out.permute(0, 3, 1, 2, 4).to(out_dtype)
+
+
+def flash_attention_xla(q, k, v, *, causal=True, window=0, q_offset=0,
+                        q_block=1024, kv_block=1024):
+    """The reference's memory-bounded blockwise attention (its route above
+    4,096 positions), as plain torch loops over blocks: never holds more
+    than a (q_block, kv_block) score tile per (batch, head).  With a
+    window only the kv blocks the window reaches are visited; the first
+    of them needs q_offset on the host (a tensor offset is read once).
+    T and S must be multiples of their block sizes, as in the
+    reference."""
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    q_block, kv_block = min(q_block, T), min(kv_block, S)
+    if T % q_block or S % kv_block:
+        raise ValueError(f"T={T} and S={S} must be multiples of q_block="
+                         f"{q_block} and kv_block={kv_block}")
+    nq, nkv = T // q_block, S // kv_block
+    n_win = nkv
+    if window:
+        q_offset = int(q_offset)
+        n_win = min((window + q_block + kv_block - 2) // kv_block + 1, nkv)
+    qg = q.reshape(B, nq, q_block, Hkv, G, D)
+    outs = []
+    for iq in range(nq):
+        qpos = (iq * q_block + torch.arange(q_block, device=q.device)
+                + q_offset)
+        first = 0
+        if window:
+            lo = iq * q_block + q_offset - (window - 1)
+            first = min(max(lo // kv_block, 0), nkv - n_win)
+        outs.append(_online_softmax(
+            qg[:, iq], qpos, k, v, range(first, first + n_win), kv_block,
+            causal=causal, window=window, out_dtype=q.dtype))
+    return torch.stack(outs, dim=1).reshape(B, T, H, D)
+
+
+def flash_attention_xla_triangular(q, k, v, *, q_offset=0, block=1024):
+    """The reference's causal blockwise attention on its balanced
+    triangular schedule: query block p is paired with block nq-1-p, and
+    the pair visits p + 1 and nq - p kv blocks, the causal triangle and no
+    more.  Requires T == S, T % block == 0 and an even block count."""
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    if T != S or T % block or (T // block) % 2:
+        raise ValueError(f"triangular schedule needs T == S (T={T}, S={S})"
+                         f" and an even number of {block}-blocks")
+    nq = T // block
+    qg = q.reshape(B, nq, block, Hkv, G, D)
+    outs = [None] * nq
+    for p in range(nq // 2):
+        for row in (p, nq - 1 - p):
+            qpos = (row * block + torch.arange(block, device=q.device)
+                    + q_offset)
+            outs[row] = _online_softmax(
+                qg[:, row], qpos, k, v, range(row + 1), block, causal=True,
+                window=0, out_dtype=q.dtype)
+    return torch.stack(outs, dim=1).reshape(B, T, H, D)
+
+
+def paged_kv_write(kp, vp, bt, kk, vv, positions):
+    """Scatter per-token K/V into the paged pool, IN PLACE.
+
+    kp/vp: (NB + 1, BS, Hkv, D) block pool shared by ALL sequences, whose
+    last block is a sink that no table names (`paged_attention_cache_defs`);
+    bt: (B, nbmax) block tables; kk/vv: (B, C, Hkv, D) new K/V;
+    positions: (B, C) ABSOLUTE positions, -1 marking rows whose writes
+    are dropped (a bucketed tail chunk's padding, a free slot's decode).
+    A dropped row is written to the sink's first row instead, so every
+    index is in range and no host synchronisation is needed; the first NB
+    blocks end as JAX's `mode="drop"` scatter leaves them.  Distinct
+    sequences write distinct blocks (shared prefix blocks are read-only),
+    so the kept writes never collide.  -> (kp, vp)."""
+    nb, bs = kp.shape[0], kp.shape[1]
+    pos = positions.long()
+    page = torch.gather(bt.long(), 1, pos.clamp(min=0) // bs)   # (B, C)
+    flat = torch.where(pos >= 0, page * bs + pos % bs,
+                       (nb - 1) * bs).reshape(-1)
+    for pool, new in ((kp, kk), (vp, vv)):
+        pool.view(nb * bs, *pool.shape[2:]).index_copy_(
+            0, flat, new.reshape(-1, *new.shape[2:]).to(pool.dtype))
+    return kp, vp
+
+
+def paged_gather_kv(kp, vp, bt):
+    """Gather each sequence's K/V view from the block pool: -> (B,
+    nbmax*BS, Hkv, D) each.  Unallocated table entries (0) gather block
+    0's contents; callers mask by length, so they get no weight."""
+    nb, bs = kp.shape[0], kp.shape[1]
+    B = bt.shape[0]
+    idx = (bt.long()[:, :, None] * bs
+           + torch.arange(bs, device=bt.device)[None, None]).reshape(B, -1)
+    kf = kp.reshape(nb * bs, *kp.shape[2:])
+    vf = vp.reshape(nb * bs, *vp.shape[2:])
+    return kf[idx], vf[idx]
+
+
+def paged_chunk_attention(q, k_seq, v_seq, positions):
+    """Exact causal attention of a prefill CHUNK over the paged view.
+    q: (B, C, H, D); k_seq/v_seq: (B, S, Hkv, D) gathered pages (holding
+    this chunk's K/V and any shared-prefix blocks); positions: (B, C)
+    absolute query positions (-1: padding, whose output is discarded).
+    Scores (C, S) in fp32; P rounded to q's dtype before PV, as in the
+    reference."""
+    B, C, H, D = q.shape
+    S, Hkv = k_seq.shape[1], k_seq.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, C, Hkv, G, D)
+    scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bthgd,bshd->bhgts", qg.float(), k_seq.float()) * scale
+    kpos = torch.arange(S, device=q.device)
+    mask = kpos[None, None, :] <= positions[:, :, None]          # (B, C, S)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgts,bshd->bthgd", p.float(), v_seq.float())
+    return out.to(q.dtype).reshape(B, C, H, D)
+
+
+def select_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                     impl="auto"):
+    """Route one attention call, by shape, as the reference routes it.
+
+    T == S with no query offset (the int 0: train, prefill) runs on the
+    flash_attention kernel for CUDA tensors at every length, and on its
+    plain version for CPU tensors; both keep P in fp32 through PV.  Any
+    other call -- an int offset other than 0, or an offset given as a
+    tensor (contiguous chunk_prefill passes the cache length) -- takes the
+    reference's plain routes, which round P to the activation dtype:
+    `attention_full` up to 4,096 positions, the triangular blockwise
+    schedule for long causal T == S, `flash_attention_xla` otherwise."""
+    T, S = q.shape[1], k.shape[1]
+    if T == S and isinstance(q_offset, int) and q_offset == 0:
+        return flash_ops.flash_attention(q, k, v, causal=causal,
+                                         window=window, impl=impl)
+    if max(T, S) <= 4096:
+        return attention_full(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
+    if (causal and not window and T == S and T % 1024 == 0
+            and (T // 1024) % 2 == 0):
+        return flash_attention_xla_triangular(q, k, v, q_offset=q_offset)
+    return flash_attention_xla(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
 
 
 # --------------------------------------------------------------------------
@@ -194,12 +391,12 @@ def attention_defs(cfg):
 
 def attention_apply(p, cfg, x, positions, *, mode="train", cache=None,
                     impl="auto"):
-    """mode: train/prefill (full seq, causal) or decode (T==1, uses
-    cache).  Returns (out, new_cache).  Decode writes the new K/V row into
-    `cache`'s tensors in place (models/cache.py)."""
-    if mode == "chunk_prefill" or (cache is not None and "kp" in cache):
-        raise NotImplementedError("paged serving: a later slice")
+    """mode: train/prefill (full seq, causal), decode (T==1, uses cache)
+    or chunk_prefill (a chunk of a prompt at `positions`, into a paged
+    cache {kp, vp, bt} or a contiguous spec'd cache).  Returns (out,
+    new_cache).  Caches are written in place (models/cache.py)."""
     window = cfg.window
+    T = x.shape[1]
     q = torch.einsum("btd,dhk->bthk", x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
@@ -211,8 +408,38 @@ def attention_apply(p, cfg, x, positions, *, mode="train", cache=None,
         vv = vv + p["bv"]
     kk = rope_apply(kk, positions, cfg.rope_theta, cfg.rope_fraction)
 
+    paged = cache is not None and "kp" in cache
+    if paged and window:
+        raise ValueError("paged cache does not support sliding windows")
     new_cache = cache
-    if mode == "decode":
+    if mode == "chunk_prefill" and paged:
+        # scatter this chunk's K/V into the block pool, then exact
+        # attention over the sequence's gathered view (which holds any
+        # shared-prefix blocks: their positions are never recomputed)
+        kp, vp = paged_kv_write(cache["kp"], cache["vp"], cache["bt"],
+                                kk, vv, positions)
+        k_seq, v_seq = paged_gather_kv(kp, vp, cache["bt"])
+        out = paged_chunk_attention(q, k_seq, v_seq, positions)
+        new_cache = {"kp": kp, "vp": vp}
+    elif mode == "chunk_prefill":
+        # contiguous chunked prefill (all rows at the same offset): write
+        # the chunk's K/V at the current length, then attention of the
+        # chunk over the cache at that offset
+        cache_len = cache["len"]
+        new_cache = kvcache.write_kv(cache, kk, vv, cache_len, impl=impl)
+        new_cache["len"] = cache_len + T
+        k_read, v_read = kvcache.read_kv(new_cache, impl=impl)
+        out = select_attention(q, k_read, v_read, causal=True,
+                               window=window, q_offset=cache_len[0],
+                               impl=impl)
+    elif mode == "decode" and paged:
+        kp, vp, bt = cache["kp"], cache["vp"], cache["bt"]
+        cache_len = cache["len"]
+        paged_kv_write(kp, vp, bt, kk, vv, cache_len[:, None])
+        k_seq, v_seq = paged_gather_kv(kp, vp, bt)
+        out = decode_attention(q, k_seq, v_seq, cache_len + 1)
+        new_cache = {"kp": kp, "vp": vp, "bt": bt, "len": cache_len + 1}
+    elif mode == "decode":
         cache_len = cache["len"]
         S = cache["k"].shape[1]
         if window and S == window:

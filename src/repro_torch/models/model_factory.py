@@ -6,6 +6,8 @@ Model exposes, as `repro.models.Model` does for the families ported so far
   init(key, device)                 -> concrete params on `device`
   apply(params, batch, mode, cache) -> (logits, aux_or_cache)
   cache_defs(batch, seq)            -> dict tree of ParamDef (decode cache)
+  paged_cache_defs(batch, num_blocks, block_size, max_blocks_per_seq)
+                                    -> the block-pool cache (dense LMs)
   n_params                          -> int
 """
 from __future__ import annotations
@@ -54,6 +56,21 @@ class Model:
         if spec is not None and self.supports_cache_spec:
             return self._cache_defs(self.cfg, batch, seq_len, spec=spec)
         return self._cache_defs(self.cfg, batch, seq_len)
+
+    @property
+    def supports_paged_cache(self) -> bool:
+        """Block-table paging applies to growing KV caches (transformer
+        families); SSM / RG-LRU state is O(1) per sequence, so those keep
+        the contiguous path."""
+        return self.cfg.family in ("dense", "moe", "vlm")
+
+    def paged_cache_defs(self, batch: int, num_blocks: int, block_size: int,
+                         max_blocks_per_seq: int):
+        if not self.supports_paged_cache:
+            raise ValueError(f"{self.cfg.name}: paged KV cache unsupported "
+                             f"(family={self.cfg.family})")
+        return transformer.paged_cache_defs(
+            self.cfg, batch, num_blocks, block_size, max_blocks_per_seq)
 
     @property
     def n_params(self) -> int:

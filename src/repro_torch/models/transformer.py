@@ -1,15 +1,21 @@
-"""Decoder-only dense LM, port of `repro.models.transformer`, 3 modes:
+"""Decoder-only dense LM, port of `repro.models.transformer`, 4 modes:
 
-  train   -- full-sequence forward, returns (logits, aux)
-  prefill -- full-sequence forward, returns (last-position logits, cache)
-  decode  -- single-token step with KV cache, returns (logits, cache)
+  train         -- full-sequence forward, returns (logits, aux)
+  prefill       -- full-sequence forward, returns (last-position logits,
+                   cache)
+  decode        -- single-token step with a contiguous KV cache or a
+                   paged one ({kp, vp, bt, len}), returns (logits, cache)
+  chunk_prefill -- a chunk of a prompt at the batch's `positions` into a
+                   contiguous spec'd cache or the paged pool (with the
+                   batch's `block_tables`), returns (logits at the batch's
+                   `last_index`, cache)
 
 Layer params stay stacked (L, ...) as the reference's `lax.scan` takes
 them (so `from_reference` moves them leaf for leaf, and a full-width
 model is never held twice); the port loops over L in Python and indexes
-the stack.  Caches are stacked (L, B, S, Hkv, D) too; decode writes each
-layer's new K/V row into them in place.  MoE blocks and the VLM stub
-frontend are later slices.
+the stack.  Caches are stacked (L, ...) too; decode and chunk_prefill
+write each layer's new K/V rows into them in place.  MoE blocks and the
+VLM stub frontend are later slices.
 """
 from __future__ import annotations
 
@@ -45,6 +51,15 @@ def cache_defs(cfg, batch: int, seq_len: int, spec=None):
     return stack_defs(per_layer, cfg.num_layers)
 
 
+def paged_cache_defs(cfg, batch: int, num_blocks: int, block_size: int,
+                     max_blocks_per_seq: int):
+    """Block-table paged decode cache (core/paging.py): one KV block pool
+    per layer, shared by all slots, plus per-slot tables and lengths."""
+    per_layer = kvcache.paged_attention_cache_defs(
+        cfg, batch, num_blocks, block_size, max_blocks_per_seq)
+    return stack_defs(per_layer, cfg.num_layers)
+
+
 def _block_apply(p, cfg, x, positions, mode, cache, impl="auto"):
     h = L.apply_norm(p["ln1"], x)
     a, new_cache = L.attention_apply(p["attn"], cfg, h, positions,
@@ -61,9 +76,8 @@ def _embed_inputs(params, cfg, batch_inputs):
 
 def lm_apply(params, cfg, batch_inputs, *, mode="train", cache=None,
              impl="auto"):
-    if mode not in ("train", "prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r}: paged serving and "
-                                  "chunk_prefill are a later slice")
+    if mode not in ("train", "prefill", "decode", "chunk_prefill"):
+        raise ValueError(f"unknown mode {mode!r}")
     x = _embed_inputs(params, cfg, batch_inputs)
     B, T = x.shape[0], x.shape[1]
     if mode == "decode":
@@ -71,27 +85,44 @@ def lm_apply(params, cfg, batch_inputs, *, mode="train", cache=None,
         positions = batch_inputs.get("positions")
         if positions is None:
             positions = cache["len"][0].reshape(B, 1)
+    elif mode == "chunk_prefill":
+        # absolute positions of this chunk's tokens; -1 marks padding rows
+        # (bucketed tail chunks) whose cache writes and logits are dropped
+        positions = batch_inputs["positions"]
     else:
         positions = torch.arange(T, dtype=torch.int32,
                                  device=x.device)[None].expand(B, T)
+    bt = batch_inputs.get("block_tables")   # (B, nbmax): paged chunks only
 
     new_caches = []
     for i in range(cfg.num_layers):
         lp = tree_map(lambda a: a[i], params["layers"])
-        lc = tree_map(lambda a: a[i], cache) if mode == "decode" else None
+        lc = None
+        if mode in ("decode", "chunk_prefill"):
+            lc = tree_map(lambda a: a[i], cache)
+            if bt is not None:
+                lc["bt"] = bt
         x, new_cache = _block_apply(lp, cfg, x, positions, mode, lc, impl)
         if mode == "prefill":
             new_caches.append(new_cache)
-        elif mode == "decode":
+        elif mode != "train" and "len" in new_cache:
             new_caches.append(new_cache["len"])
 
     if mode == "prefill":
         x = x[:, -1:]  # serving needs only the last position's logits
+    elif mode == "chunk_prefill":
+        # only the last VALID position's logits matter (tail chunks are
+        # padded to a bucket length)
+        li = batch_inputs["last_index"].reshape(B).long()
+        x = x[torch.arange(B, device=x.device), li][:, None]
     x = L.apply_norm(params["final_norm"], x)
     logits = L.unembed_apply(params["embed"], x)
     if mode == "train":
         return logits, 0.0      # no MoE blocks, so no load-balance loss
-    if mode == "decode":
-        # k/v (and scales) were written in place into the stacked tensors
+    if mode == "prefill":
+        return logits, tree_map(lambda *ls: torch.stack(ls), *new_caches)
+    # k/v (and scales, or the paged pool) were written in place into the
+    # stacked tensors; a paged chunk carries no lengths
+    if new_caches:
         return logits, {**cache, "len": torch.stack(new_caches)}
-    return logits, tree_map(lambda *ls: torch.stack(ls), *new_caches)
+    return logits, cache

@@ -659,6 +659,139 @@ def test_serve_loop_on_card_matches_solo(cuda):
     assert q8kernel.quantize_grouped_cuda.launches > q_before
 
 
+def _paged_streams(model, params, prompts, max_new, **pool):
+    """The prompts through a PagedServeLoop on params' device, the
+    allocator's invariants after every tick and the logits behind every
+    token recorded; -> ({rid: tokens}, {rid: {index: logits}}, loop)."""
+    from repro_torch.examples import serve_load
+    from repro_torch.launch.serve_loop import PagedServeLoop, Request
+    loop = PagedServeLoop(model, params, **pool)
+    rows = serve_load.record_logits(loop)
+    for i, p in enumerate(prompts):
+        loop.submit(Request(rid=i, prompt=p, max_new=max_new))
+    done = {}
+    while loop.live or loop.queue:
+        done.update({r.rid: r.out for r in loop.tick()})
+        loop.alloc.check_invariants()
+    assert sorted(done) == list(range(len(prompts)))
+    assert all(len(o) == max_new for o in done.values())
+    return done, rows, loop
+
+
+def _cpu_contiguous(model, params, prompts, max_new):
+    """The prompts through a contiguous ServeLoop on the CPU, the logits
+    behind every token recorded: -> ({rid: tokens}, {rid: {index:
+    logits}})."""
+    from repro_torch.examples import serve_load
+    from repro_torch.launch.serve_loop import Request, ServeLoop
+    loop = ServeLoop(model, params, max_batch=2, max_len=128)
+    rows = serve_load.record_logits(loop)
+    for i, p in enumerate(prompts):
+        loop.submit(Request(rid=i, prompt=p, max_new=max_new))
+    return {r.rid: r.out for r in loop.run_until_drained()}, rows
+
+
+def _granite_smoke(seed, device):
+    from repro_torch import threefry
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    model = build_model(get_smoke_config("granite-20b"))
+    return model, model.init(threefry.key(seed), device)
+
+
+@pytest.mark.parametrize("num_blocks,preempts", [(32, False), (9, True)])
+def test_paged_loop_on_card_follows_cpu(cuda, num_blocks, preempts):
+    """granite smoke through PagedServeLoop on the card (mid-flight joins,
+    slot reuse; with 9 blocks of 8 for three sequences of 37+ positions, a
+    forced preemption) against the same loop on the CPU and the CPU's
+    contiguous ServeLoop: the card's streams follow the CPU's paged
+    streams, and both follow the contiguous ones, the logits behind every
+    token recorded (examples/serve_load.divergence); no flash_attention
+    launch."""
+    from repro_torch.examples import serve_load
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.tree import tree_map
+    model, params_cpu = _granite_smoke(4, "cpu")
+    params = tree_map(lambda a: a.to(cuda), params_cpu)
+    rng = np.random.default_rng(4)
+    lengths = (21, 23, 22) if preempts else (12, 7, 19, 33, 5)
+    prompts = [rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    pool = dict(max_batch=3 if preempts else 2, num_blocks=num_blocks,
+                block_size=8, chunk=16)
+    max_new = 16 if preempts else 8
+    flash_before = fa.flash_attention_cuda.launches
+    got, got_rows, loop = _paged_streams(model, params, prompts, max_new,
+                                         **pool)
+    assert fa.flash_attention_cuda.launches == flash_before
+    assert (loop.preemptions >= 1) == preempts
+    cpu, cpu_rows, _ = _paged_streams(model, params_cpu, prompts, max_new,
+                                      **pool)
+    want, want_rows = _cpu_contiguous(model, params_cpu, prompts, max_new)
+    for i in range(len(prompts)):
+        for streams, rows in ((cpu, cpu_rows), (got, got_rows)):
+            kind, diff = serve_load.divergence(streams[i], want[i], rows[i],
+                                               want_rows[i])
+            assert kind != "mismatch", (i, diff, streams[i], want[i])
+        kind, diff = serve_load.divergence(got[i], cpu[i], got_rows[i],
+                                           cpu_rows[i])
+        assert kind != "mismatch", (i, diff, got[i], cpu[i])
+    assert not loop.alloc.tables and loop.alloc.n_free() == num_blocks
+
+
+def test_chunked_int8_prefill_quant8_launches(cuda):
+    """Contiguous chunk_prefill of granite smoke into a head/int8 cache on
+    the card: one grouped quantise (cache.write_kv) and one grouped
+    dequantise (cache.read_kv) per layer per chunk and per decode step,
+    as chip_smoke.py's phase 15 holds at full width; the last chunk's
+    logits within 2e-2 scale-relative of a one-shot prefill's."""
+    import dataclasses
+    from repro_torch.launch.steps import (make_chunk_prefill_step,
+                                          make_decode_step)
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    base, params = _granite_smoke(2, cuda)
+    model = build_model(dataclasses.replace(base.cfg,
+                                            cache_spec="head/int8"))
+    L = model.cfg.num_layers
+    B, T, C, S, steps = 2, 32, 8, 48, 3
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, model.cfg.vocab_size, (B, T)).astype(np.int32), device=cuda)
+    cache = tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
+                                           device=cuda),
+                     model.cache_defs(B, S))
+    chunk, decode = make_chunk_prefill_step(model), make_decode_step(model)
+    q0 = (q8kernel.quantize_grouped_cuda.launches,
+          q8kernel.dequantize_grouped_cuda.launches)
+    for pos in range(0, T, C):
+        batch = {"tokens": toks[:, pos:pos + C],
+                 "positions": torch.arange(pos, pos + C, dtype=torch.int32,
+                                           device=cuda)[None].expand(B, C),
+                 "last_index": torch.full((B,), C - 1, dtype=torch.int32,
+                                          device=cuda)}
+        if pos + C < T:
+            nxt, cache = chunk(params, batch, cache)
+        else:       # the last chunk as the step runs it, for its logits
+            with torch.no_grad():
+                logits, cache = model.apply(params, batch,
+                                            mode="chunk_prefill", cache=cache)
+            nxt = torch.argmax(logits[:, -1].float(), dim=-1)
+    for i in range(steps):
+        nxt, cache = decode(params, {
+            "tokens": nxt[:, None].to(torch.int32),
+            "positions": torch.full((B, 1), T + i, dtype=torch.int32,
+                                    device=cuda)}, cache)
+    torch.cuda.synchronize()
+    n = L * (T // C + steps)
+    assert (q8kernel.quantize_grouped_cuda.launches - q0[0],
+            q8kernel.dequantize_grouped_cuda.launches - q0[1]) == (n, n)
+    with torch.no_grad():
+        one, _ = model.apply(params, {"tokens": toks}, mode="prefill")
+    rel = float((logits[:, -1].float() - one[:, -1].float()).abs().max()
+                / one[:, -1].float().abs().max())
+    assert rel <= 2e-2
+
+
 # linrec: (B, T, D) with odd T and D, with and without a starting state
 LINREC_SHAPES = [(1, 128, 128), (2, 512, 640), (3, 256, 512), (2, 1, 12),
                  (2, 77, 130), (1, 1000, 12), (4, 33, 4096)]

@@ -255,14 +255,41 @@ def test_attention_apply_train_prefill_decode(arch, spec):
                 _close(ct[key], cj[key])
 
 
-def test_select_attention_refuses_offsets():
+def test_select_attention_refuses_offsets(monkeypatch):
+    """Queries at an offset are no longer refused: they take the
+    reference's plain routes, chosen by shape.  T == S with the int offset
+    0 stays on the flash_attention kernel (its plain version here); an
+    offset (a nonzero int, or any tensor) goes to attention_full up to
+    4,096 positions, the triangular schedule for long causal T == S, the
+    blockwise scan otherwise."""
     _, qt = _x((1, 4, 2, 8), 22)
     _, kt = _x((1, 6, 2, 8), 23)
-    with pytest.raises(NotImplementedError, match="paged"):
-        TL.select_attention(qt, kt, kt)
-    with pytest.raises(NotImplementedError, match="paged"):
-        TL.attention_apply({}, get_smoke_config("granite-20b"), None, None,
-                           mode="chunk_prefill")
+    routed = TL.select_attention(qt, kt, kt, q_offset=torch.tensor(2))
+    assert torch.equal(routed, TL.attention_full(qt, kt, kt, q_offset=2))
+    _, k4 = _x((1, 4, 2, 8), 24)
+    flash = TL.select_attention(qt, k4, k4)
+    assert torch.equal(flash, TL.flash_ops.flash_attention(
+        qt, k4, k4, causal=True, window=0, impl="ref"))
+    assert torch.equal(TL.select_attention(qt, k4, k4, q_offset=1),
+                       TL.attention_full(qt, k4, k4, q_offset=1))
+    taken = []
+    for name in ("flash_attention_xla", "flash_attention_xla_triangular",
+                 "attention_full"):
+        monkeypatch.setattr(TL, name, lambda *a, _n=name, **k:
+                            taken.append((_n, k.get("q_offset"))))
+    monkeypatch.setattr(TL.flash_ops, "flash_attention",
+                        lambda *a, **k: taken.append(("kernel", None)))
+    long = torch.zeros((1, 8192, 1, 8), dtype=torch.bfloat16)
+    short = long[:, :512]
+    TL.select_attention(long, long, long, q_offset=torch.tensor(0))
+    TL.select_attention(short, long, long, q_offset=torch.tensor(7680))
+    TL.select_attention(long, long, long, window=64, q_offset=3)
+    TL.select_attention(short, long[:, :4096], long[:, :4096], q_offset=5)
+    TL.select_attention(long, long, long)
+    assert [n for n, _ in taken] == [
+        "flash_attention_xla_triangular", "flash_attention_xla",
+        "flash_attention_xla", "attention_full", "kernel"]
+    assert [int(o) for _, o in taken[:4]] == [0, 7680, 3, 5]
 
 
 def test_stack_defs_matches_reference():

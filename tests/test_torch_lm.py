@@ -36,7 +36,7 @@ from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.models import build_model
 from repro_torch.models.param import (from_reference, init_params_on_device,
                                       pdef)
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves
 
 DENSE = ["granite-20b", "chatglm3-6b", "qwen1.5-4b", "minitron-8b"]
 TOL = 2e-2
@@ -214,10 +214,6 @@ def test_unported_families_raise():
                    {"family": "vlm"}):
         with pytest.raises(NotImplementedError):
             build_model(dataclasses.replace(cfg, **change))
-    tm = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="paged"):
-        tm.apply(tree_map(lambda d: None, {}), {"tokens": None},
-                 mode="chunk_prefill")
 
 
 @pytest.mark.parametrize("arch", ["granite-20b", "chatglm3-6b"])

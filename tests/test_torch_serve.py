@@ -119,6 +119,10 @@ NEW_MODULES = ["configs/granite_20b.py", "configs/chatglm3_6b.py",
                "configs/qwen1_5_4b.py", "configs/minitron_8b.py",
                "models/cache.py", "models/layers.py", "models/transformer.py",
                "launch/serve.py", "launch/serve_loop.py",
+               "launch/steps.py", "launch/loadgen.py", "core/paging.py",
+               "models/model_factory.py", "examples/serve_load.py",
+               "examples/serve_batched.py", "examples/profile_serve.py",
+               "examples/parity_gap.py",
                "kernels/flash_attention/kernel.py",
                "kernels/flash_attention/ops.py",
                "kernels/flash_attention/ref.py"]
