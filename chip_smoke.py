@@ -82,10 +82,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      12, 16, 200, 256, windows off the tile grid, non-causal, fp32 and
      bf16 (3e-4 / 3e-2), and strided views on the mma.sync and FMA routes,
      printing each shape's route (kernel.route: wgmma for bf16 that TMA
-     can describe, mma / fma for the rest); then time it at granite-20b's
-     and recurrentgemma-9b's full-width prefill shapes beside the bound,
-     the plain version and one scaled_dot_product_attention call (a
-     yardstick the port never calls);
+     can describe, mma / fma for the rest), mixtral-8x22b's GQA group of 6
+     under its window of 4,096 at T = 5,000 and qwen3-moe's group of 16
+     at D = 64 among them; then time it at granite-20b's and
+     recurrentgemma-9b's full-width prefill shapes and at those two MoE
+     shapes beside the bound, the plain version and one
+     scaled_dot_product_attention call (a yardstick the port never calls;
+     a window the prompt passes as a boolean mask over K/V repeated to
+     every head);
   11. the LM serving path at granite-20b's full width (20.32 B params,
      bf16, drawn on the card): `python -m repro_torch.launch.serve --full
      --batch 8 --prompt-len 2048 --gen 32` through its main, which must
@@ -155,10 +159,28 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      decode step; then its 2 x 2,048 prefill's attention and scans held
      layer by layer against the plain versions, and its last-position
      logits against the plain run's: within 3.5e-2 (see LM_LOGITS_TOL);
-  20. print the kernel table as JSON, then the result line.
+  20. mixtral-8x22b at full width cut to 8 of its 56 layers (20.44 B
+     params, 40.87 GB in bf16; the whole model is 140.6 B), served
+     through serve.py's serve_config at 4 x 2,048 prompts and 32 new
+     tokens: 8 flash launches in the prefill, all wgmma, none a decode
+     step; its 2 x 2,048 prefill held layer by layer against the plain
+     attention (3e-2) and in its last-position logits (LM_LOGITS_TOL),
+     and each layer's routing on the card (choices, positions, drops)
+     equal bit for bit to moe_route on the CPU from the same copied
+     probabilities, the share of dropped choices printed; then a
+     ServeLoop (4 slots x 4,096) draining prompts of 1, 77, 300 and
+     2,047 tokens, 16 new tokens each, each first token equal to its
+     solo prefill's; and one MoE layer's device time by part (router and
+     routing, dispatch, expert products beside their bound, combine) at
+     the serve's prefill and decode shapes;
+  21. qwen3-moe-235b-a22b the same (8 of 94 layers, 20.86 B params,
+     41.72 GB; 128 experts, top-8);
+  22. print the kernel table as JSON (flash_attention's launches by
+     path), then the result line.
 
 Each model is freed before the next one is drawn (40.6 GB of weights
-for phases 11-12 and again for 13-15, then 14.6 and 20.9 GB).
+for phases 11-12 and again for 13-15, then 14.6, 20.9, 40.9 and 41.7
+GB).
 """
 from __future__ import annotations
 
@@ -257,7 +279,12 @@ KV_READ_ROWS, KV_HEAD_DIM = 8 * (2048 + 128) * 1, 128
 # flash_attention sweep (B, T, H, Hkv, D, window, causal): test_kernels.py's
 # five shapes, odd T, the smoke configs' head dims, non-causal, then a tail
 # tile of one key, D = 256 under a window off the tile grid, granite's group
-# of 48; bf16 takes the wgmma kernel wherever D % 8 == 0 (D = 12: mma.sync)
+# of 48, then the MoE archs' prefill heads (FA_MOE, also timed beside the
+# bound): mixtral-8x22b's GQA group of 6 under its window of 4,096 with T
+# past it, qwen3-moe's group of 16 at D = 64; bf16 takes the wgmma kernel
+# wherever D % 8 == 0 (D = 12: mma.sync)
+FA_MOE = {"mixtral-8x22b": (1, 5000, 48, 8, 128, 4096),
+          "qwen3-moe-235b-a22b": (2, 2048, 64, 4, 64, 0)}
 FA_SWEEP = [(2, 256, 4, 4, 64, 0, True), (2, 256, 4, 2, 64, 0, True),
             (2, 512, 8, 1, 128, 0, True), (2, 512, 4, 2, 64, 128, True),
             (2, 1024, 2, 2, 64, 300, True), (2, 1, 48, 1, 128, 0, True),
@@ -266,7 +293,8 @@ FA_SWEEP = [(2, 256, 4, 4, 64, 0, True), (2, 256, 4, 2, 64, 0, True),
             (2, 130, 4, 1, 16, 0, True), (2, 77, 4, 2, 64, 0, False),
             (1, 300, 8, 8, 128, 0, False), (1, 130, 3, 3, 200, 50, False),
             (1, 300, 4, 1, 256, 0, True), (1, 4097, 4, 1, 128, 0, True),
-            (2, 700, 4, 1, 256, 300, True), (1, 520, 48, 1, 128, 0, True)]
+            (2, 700, 4, 1, 256, 300, True), (1, 520, 48, 1, 128, 0, True),
+            *((*shape, True) for shape in FA_MOE.values())]
 # bf16 q/k/v as views of one fused (B, T, 6, D + pad) projection, (D, pad,
 # route): a row padded by 8 keeps TMA's strides; by 1, mma.sync (D <= 128)
 # or the FMA kernel (D > 128) takes it
@@ -282,8 +310,19 @@ LM_CHECK_BATCH = 2      # plain-version prefill: fp32 scores, 1.6 GB a layer
 # logits, so its kernels, each within one ulp of the plain version, sit
 # there; its tolerance lies between that and the faults planted by
 # src/repro_torch/examples/logits_gap.py (readings in PERF.md section 6).
+# The MoE archs cut in depth (logits_gap.DEPTH_CUT): a bf16 ulp in
+# attention can move a token across a near tie of its router, or across an
+# expert's capacity, which moves its hidden state by O(1), and partings
+# compound layer by layer (qwen3-moe's plain prefill routes 55 % of the
+# tokens of its 8th layer otherwise).  Each tolerance lies between the
+# arch's rounding readings (the kernels and a one-ulp nudge) and its
+# smallest planted fault, from examples/logits_gap.py on an H100: mixtral
+# 0.0120 and 0.0137 against 0.0873, qwen3-moe 0.0877 and 0.0395 against
+# 0.2119 (PERF.md section 6).  The attention kernel is held per layer at
+# 3e-2 and the routing bit for bit besides.
+MOE_LOGITS_TOL = {"mixtral-8x22b": 3.5e-2, "qwen3-moe-235b-a22b": 0.14}
 LM_LOGITS_TOL = {"granite-20b": 2e-2, "falcon-mamba-7b": 2e-2,
-                 "recurrentgemma-9b": 3.5e-2}
+                 "recurrentgemma-9b": 3.5e-2, **MOE_LOGITS_TOL}
 LOOP_LENGTHS = (1, 77, 300, 1000, 2047, 513, 64, 1500)
 LOOP_SLOTS, LOOP_MAX_LEN, LOOP_NEW = 4, 4096, 16
 # paged serving through serve.py --paged: batch slots, prompt, new tokens
@@ -305,6 +344,12 @@ LR_MAIN = {SSM_ARCH: (SSM_BATCH, LM_PROMPT, 8192 * 16),
 SSM_LOOP_LENGTHS = (3, 77, 300, 1000, 2047, 513, 64, 1500)
 # recurrentgemma-9b's prefill attention (B, T, H, Hkv, D, window)
 FA_HYBRID = (HYBRID_BATCH, LM_PROMPT, 16, 1, 256, 2048)
+# the MoE archs at full width, cut to examples/logits_gap.py's DEPTH_CUT
+# of 8 layers (neither fits one card whole: 140.6 and 231.7 B params),
+# served at MOE_BATCH x LM_PROMPT
+MOE_ARCHS = ("mixtral-8x22b", "qwen3-moe-235b-a22b")
+MOE_BATCH = 4
+MOE_LOOP_LENGTHS = (1, 77, 300, 2047)
 
 
 def check(ok: bool, msg: str):
@@ -822,8 +867,9 @@ def attention_pairs(T: int, window: int, causal: bool) -> int:
 
 def flash_sweep(torch):
     """flash_attention vs its plain version over FA_SWEEP x dtype and the
-    FA_STRIDED views, each on the route kernel.route gives it; then the
-    two full-width prefill shapes, timed; -> their records, by arch."""
+    FA_STRIDED views, each on the route kernel.route gives it; then
+    granite-20b's and recurrentgemma-9b's full-width prefill shapes and
+    the MoE archs' (FA_MOE), timed; -> their records, by arch."""
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda, route
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -872,7 +918,8 @@ def flash_sweep(torch):
              "window=100", q, k, v, 100, True)
     recs = {}
     for arch, (B, T, H, Hkv, D, window) in (
-            (LM_ARCH, (*FA_MAIN, 0)), (HYBRID_ARCH, FA_HYBRID)):
+            (LM_ARCH, (*FA_MAIN, 0)), (HYBRID_ARCH, FA_HYBRID),
+            *FA_MOE.items()):
         q, k, v = qkv(B, T, H, Hkv, D, torch.bfloat16)
         check(route(q, k, v) == "wgmma", f"{arch} prefill attention route "
               f"{route(q, k, v)}")
@@ -886,10 +933,19 @@ def flash_sweep(torch):
                                                           window=window), 5)
         plain_ms = graph_ms(torch, lambda: plain(q, k, v, window), 2)
         # the yardstick: is_causal=True is recurrentgemma's window of 2,048
-        # at T = 2,048 (every key j <= t also has j > t - 2,048)
-        check(window in (0, T), f"no SDPA mask for window {window}")
-        lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+        # at T = 2,048 (every key j <= t also has j > t - 2,048); a window
+        # the prompt passes (mixtral's) is a boolean mask over K/V repeated
+        # to every head
+        if window in (0, T):
+            lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+        else:
+            t = torch.arange(T, device="cuda")
+            mask = (t[None] <= t[:, None]) & (t[None] > t[:, None] - window)
+            kr, vr = (x.repeat_interleave(H // Hkv, dim=1) for x in (kt, vt))
+            lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kr, vr, attn_mask=mask), 20)
+            del kr, vr, mask
         flops = 4 * D * attention_pairs(T, window, True) * B * H
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
@@ -928,9 +984,13 @@ def decode_counts(cfg) -> dict:
     return {"flash_attention": 0, "linrec": layer_counts(cfg)["linrec"]}
 
 
-def lm_serve(torch, arch: str, batch: int):
+def lm_serve(torch, arch: str, batch: int, layers: int = 0):
     """The serve entry point at full width, counted from zero; -> (its
-    result, the launches of each kernel in that run, peak memory)."""
+    result, the launches of each kernel in that run, peak memory).  With
+    `layers`, the arch's full-width config cut to that many layers is
+    served through serve.serve_config, the body of serve.py's main."""
+    import dataclasses
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
     torch.cuda.reset_peak_memory_stats()
     for fn in serve.KERNELS.values():
@@ -938,9 +998,14 @@ def lm_serve(torch, arch: str, batch: int):
         fn.routes.update(dict.fromkeys(fn.routes, 0))
     routes = serve.KERNELS["flash_attention"].routes
     lr_routes = serve.KERNELS["linrec"].routes
+    argv = ["--arch", arch, "--full", "--batch", str(batch),
+            "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN)]
     t0 = time.perf_counter()
-    res = serve.main(["--arch", arch, "--full", "--batch", str(batch),
-                      "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN)])
+    if layers:
+        res = serve.serve_config(dataclasses.replace(
+            get_config(arch), num_layers=layers), serve.parse_args(argv))
+    else:
+        res = serve.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in serve.KERNELS.items()}
@@ -971,7 +1036,8 @@ def lm_serve(torch, arch: str, batch: int):
           f"serve {arch} --full: generated ids {toks.shape}, range "
           f"{toks.min()}..{toks.max()}")
     pre, dec = res["prefill_s"], res["decode_s"]
-    print(f"serve {arch} full width ({model.n_params / 1e9:.2f} B params,"
+    print(f"serve {arch} full width, {model.cfg.num_layers} layers "
+          f"({model.n_params / 1e9:.2f} B params,"
           f" bf16; drawn on the card in {res['init_s']:.1f} s): prefill "
           f"{batch}x{LM_PROMPT} {pre * 1e3:.1f} ms "
           f"({batch * LM_PROMPT / pre:.0f} tok/s), decode "
@@ -988,10 +1054,22 @@ def lm_kernel_vs_plain(torch, model, params):
     """A batch of LM_CHECK_BATCH x LM_PROMPT prefilled through the kernels,
     each layer's attention and scan output held against the plain version
     on the same inputs, then the whole prefill through the plain versions:
-    last-position logits within the arch's LM_LOGITS_TOL."""
+    last-position logits within the arch's LM_LOGITS_TOL.  An MoE model's
+    routing is copied to the host in every layer of both prefills: the
+    card's choices, positions and drops must equal moe_route's on the CPU
+    from the same probabilities, bit for bit; the share of dropped
+    choices and of tokens routed otherwise in the plain prefill are
+    printed."""
     from repro_torch.kernels.linrec import ops as linrec_ops
     from repro_torch.models import layers
     arch = model.cfg.name
+    route, routed = layers.moe_route, {"kernels": [], "plain": []}
+
+    def recorded_route(probs, k, C):
+        out = route(probs, k, C)
+        routed[run].append((probs.cpu(), k, C, [t.cpu() for t in out]))
+        return out
+
     rng = np.random.default_rng(1)
     toks = torch.as_tensor(rng.integers(
         0, model.cfg.vocab_size, (LM_CHECK_BATCH, LM_PROMPT)).astype(
@@ -1014,16 +1092,20 @@ def lm_kernel_vs_plain(torch, model, params):
 
     layers.select_attention, linrec_ops.linrec = checked_attention, \
         checked_scan
+    layers.moe_route, run = recorded_route, "kernels"
     try:
         with torch.no_grad():
             lk, _ = model.apply(params, {"tokens": toks}, mode="prefill")
+            layers.select_attention, linrec_ops.linrec = select, scan
+            run = "plain"
+            lr, _ = model.apply(params, {"tokens": toks}, mode="prefill",
+                                impl="ref")
     finally:
         layers.select_attention, linrec_ops.linrec = select, scan
+        layers.moe_route = route
     tols = {"flash_attention": FA_TOL["bfloat16"],
             "linrec": LR_TOL["float32"]}
-    with torch.no_grad():
-        lr, _ = model.apply(params, {"tokens": toks}, mode="prefill",
-                            impl="ref")
+    routing = moe_routing_check(arch, routed) if routed["kernels"] else {}
     counts = layer_counts(model.cfg)
     lk, lr = lk[:, -1].float(), lr[:, -1].float()
     rel = float((lk - lr).abs().max() / lr.abs().max())
@@ -1049,7 +1131,81 @@ def lm_kernel_vs_plain(torch, model, params):
           "non-finite prefill logits")
     check(rel <= logits_tol, f"{arch} prefill logits, kernels vs plain: "
           f"scale-relative max |diff| {rel} > {logits_tol}")
-    return {"layer_max_abs_err": layer_errs, "logits_rel": rel}
+    return {"layer_max_abs_err": layer_errs, "logits_rel": rel, **routing}
+
+
+def moe_routing_check(arch, routed) -> dict:
+    """Each layer's routing on the card against moe_route on the CPU from
+    the same (copied) probabilities: gidx, pos and keep bit-equal.  ->
+    the share of dropped choices and the share of tokens whose choices
+    the plain prefill makes otherwise, by layer."""
+    from repro_torch.models import layers
+    dropped, parted = [], []
+    for i, ((probs, k, C, card), (_, _, _, plain)) in enumerate(
+            zip(routed["kernels"], routed["plain"])):
+        cpu = layers.moe_route(probs, k, C)
+        for name, got, want in zip(("gidx", "pos", "keep"), card[1:],
+                                   cpu[1:]):
+            check(got.equal(want), f"{arch} layer {i}: the card's "
+                  f"routing {name} differs from the CPU's on the same "
+                  "probabilities")
+        dropped.append(float((~card[3]).float().mean()))
+        parted.append(float((card[1] != plain[1]).any(-1).float().mean()))
+    check(len(dropped) == len(routed["plain"]),
+          f"{arch}: {len(dropped)} routed layers in the kernel prefill, "
+          f"{len(routed['plain'])} in the plain one")
+    print(f"{arch} routing, {len(dropped)} layers (k {k}, capacity {C} "
+          f"a group): card == CPU from the same probabilities, bit for "
+          f"bit (gidx, pos, keep); dropped choices by layer "
+          f"{[round(d, 4) for d in dropped]}; tokens routed otherwise in "
+          f"the plain prefill {[round(p, 5) for p in parted]}", flush=True)
+    return {"dropped_share": dropped, "parted_share": parted}
+
+
+def moe_layer_times(torch, model, params, card: str) -> dict:
+    """One MoE layer (layer 0's params) at the serve's prefill and decode
+    shapes, by part: router and routing, dispatch, the expert products,
+    combine, and the whole layer; device time (CUDA graph), the expert
+    products beside their bound (operations at bf16, the expert weights
+    read once)."""
+    from repro_torch.models import layers
+    cfg = model.cfg
+    E, k, d, f = (cfg.num_experts, cfg.experts_per_token, cfg.d_model,
+                  cfg.moe_d_ff)
+    p = {name: w[0] for name, w in params["layers"]["moe"].items()}
+    g = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for label, T in (("prefill", LM_PROMPT), ("decode", 1)):
+        x = torch.randn(MOE_BATCH, T, d, generator=g, device="cuda").to(
+            torch.bfloat16)
+        G = layers._moe_groups(MOE_BATCH, T)
+        C = layers.moe_capacity(cfg, MOE_BATCH * T // G)
+        xg = x.reshape(G, -1, d)
+        gval, gidx, pos, keep = layers.moe_route(layers.moe_router(p, xg),
+                                                 k, C)
+        xe = layers.moe_dispatch(xg, gidx, pos, keep, E, C)
+        ye = layers.moe_experts(p, cfg, xe)
+        parts = {
+            "route": lambda: layers.moe_route(layers.moe_router(p, xg), k, C),
+            "dispatch": lambda: layers.moe_dispatch(xg, gidx, pos, keep, E,
+                                                    C),
+            "experts": lambda: layers.moe_experts(p, cfg, xe),
+            "combine": lambda: layers.moe_combine(ye, gval, gidx, pos, keep,
+                                                  C),
+            "layer": lambda: layers.moe_apply(p, cfg, x)}
+        ms = {name: graph_ms(torch, fn, 5) for name, fn in parts.items()}
+        b_ms, b_by = bound(3 * E * d * f * 2, 6 * E * G * C * d * f,
+                           BF16_FLOPS_PER_S)
+        gathers = ms["route"] + ms["dispatch"] + ms["combine"]
+        out[label] = {**ms, "experts_bound_ms": b_ms, "bound_by": b_by}
+        print(f"{cfg.name} MoE layer, {label} {MOE_BATCH}x{T} (G {G}, C "
+              f"{C}): " + ", ".join(f"{n} {t:.4f} ms" for n, t in ms.items())
+              + f"; experts' bound {b_ms:.4f} ms ({b_by}, "
+              f"{b_ms / ms['experts']:.2%} of it); router, routing, "
+              f"dispatch and combine {gathers / ms['layer']:.2%} of the "
+              f"layer ({card})", flush=True)
+        del x, xg, xe, ye
+    return out
 
 
 def lm_serve_loop(torch, model, params, lengths):
@@ -1665,6 +1821,7 @@ def main() -> int:
         return 1
     from repro_torch.core.hierarchy import FogTopology
     from repro_torch.examples import fl_exchange, quickstart
+    from repro_torch.examples.logits_gap import DEPTH_CUT
     from repro_torch.kernels.fed_agg import kernel
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.linrec import kernel as lrk
@@ -1920,7 +2077,34 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
 
-    # 20. results
+    # 20-21. the MoE archs at full width, DEPTH_CUT layers, counted from
+    #        zero: serve, kernels vs plain with the routing check, the
+    #        ServeLoop
+    moe = {}
+    for arch in MOE_ARCHS:
+        t0 = time.perf_counter()
+        res, serve_launches, peak = lm_serve(torch, arch, MOE_BATCH,
+                                             layers=DEPTH_CUT[arch])
+        model, params = res["model"], res["params"]
+        steps = res["decode_steps"]
+        moe[arch] = {"serve": serve_launches, "peak_gb": peak,
+                     "prefill_ms": res["prefill_s"] * 1e3,
+                     "decode_ms": res["decode_s"] * 1e3 / steps}
+        del res
+        moe[arch].update(lm_kernel_vs_plain(torch, model, params))
+        moe[arch]["loop"] = lm_serve_loop(torch, model, params,
+                                          MOE_LOOP_LENGTHS)
+        moe[arch]["layer_ms"] = moe_layer_times(torch, model, params, card)
+        moe[arch]["wall_s"] = time.perf_counter() - t0
+        print(f"{arch} full width, {DEPTH_CUT[arch]} layers, phase: prefill "
+              f"{MOE_BATCH}x{LM_PROMPT} {moe[arch]['prefill_ms']:.1f} ms, "
+              f"decode {moe[arch]['decode_ms']:.2f} ms/step, peak "
+              f"{peak:.2f} GB, {moe[arch]['wall_s']:.1f} s wall ({card})",
+              flush=True)
+        del model, params
+        torch.cuda.empty_cache()
+
+    # 22. results
     # fed_agg on its main path: one grouped launch over the async merge's
     # tree; library_ms is one einsum over the same elements as a (2, N)
     # stack (the sweep's (2, 20,490) row), which no tree call has
@@ -1966,17 +2150,25 @@ def main() -> int:
             "library_ms": t["library_cold_ms"],
             "warm_ms": t["grouped_ms"], "plain_warm_ms": t["plain_ms"],
             "library_warm_ms": t["library_ms"]})
+    flash_paths = {f"{LM_ARCH} serve": lm_launches["flash_attention"],
+                   f"{LM_ARCH} ServeLoop": loop_launches["flash_attention"],
+                   f"{HYBRID_ARCH} serve":
+                       hybrid_launches["flash_attention"]}
+    for arch, r in moe.items():
+        flash_paths[f"{arch} serve"] = r["serve"]["flash_attention"]
+        flash_paths[f"{arch} ServeLoop"] = r["loop"]["flash_attention"]
     table.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:105",
-        "launches": sum(r["flash_attention"] for r in (
-            lm_launches, loop_launches, hybrid_launches)),
+        "launches": sum(flash_paths.values()),
+        "launches_by_path": flash_paths,
         "max_abs_err": fa_main["max_abs_err"], "ms": fa_main["ms"],
         "plain_ms": fa_main["plain_ms"], "bound_ms": fa_main["bound_ms"],
         "bound_by": fa_main["bound_by"],
-        "library_ms": fa_main["library_ms"]})
+        "library_ms": fa_main["library_ms"],
+        "moe_shapes": {arch: fa_recs[arch] for arch in MOE_ARCHS}})
     # linrec on its main path: the tma route at falcon's prefill scan; the
     # column kernel (the other route) read in the same call
     lr = lr_main[f"{SSM_ARCH} prefill"]
@@ -2001,8 +2193,10 @@ def main() -> int:
           f"ServeLoop {ssm_loop_launches}; {HYBRID_ARCH} serve "
           f"{hybrid_launches}. "
           f"Serve peak memory: {LM_ARCH} {lm_peak:.2f} GB, {SSM_ARCH} "
-          f"{ssm_peak:.2f} GB, {HYBRID_ARCH} {hybrid_peak:.2f} GB",
-          flush=True)
+          f"{ssm_peak:.2f} GB, {HYBRID_ARCH} {hybrid_peak:.2f} GB, "
+          + ", ".join(f"{arch} ({DEPTH_CUT[arch]} layers) "
+                      f"{r['peak_gb']:.2f} GB"
+                      for arch, r in moe.items()), flush=True)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

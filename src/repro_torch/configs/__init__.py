@@ -2,8 +2,8 @@
 
 `get_config(name)` / `get_smoke_config(name)` behave as in
 `repro.configs`, restricted to what the port has: the paper's own Tier-A
-models, the dense LMs and the recurrent LMs (ssm, hybrid).  The MoE, VLM
-and enc-dec archs are not registered yet (ROADMAP queue 1)."""
+models, the dense LMs, the MoE LMs and the recurrent LMs (ssm, hybrid).
+The VLM and enc-dec archs are not registered yet (ROADMAP queue 1)."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +15,8 @@ _ARCHS = {
     "chatglm3-6b": "chatglm3_6b",
     "granite-20b": "granite_20b",
     "minitron-8b": "minitron_8b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
     # the paper's own workloads (Tier-A FL experiments)

@@ -6,24 +6,30 @@ chip_smoke.py's per-arch LM_LOGITS_TOL.
 
 One arch at full width, params drawn on the card from seed 0 as
 `launch/serve.py` draws them, and chip_smoke.py's check batch: 2 x 2,048
-tokens from numpy's default_rng(1).  Each reading is max |diff| /
+tokens from numpy's default_rng(1).  The MoE archs, which do not fit one
+card whole, keep their full width and are cut to chip_smoke.py's depth
+(DEPTH_CUT: 8 layers).  Each reading is max |diff| /
 max |plain| over the last position's logits, against the plain prefill:
 
   kernels      flash_attention and linrec as shipped
   nudge        the plain path with one bf16 ulp (x (1 + 2^-8)) nudged into
                0.1 % of the first mixer layer's outputs
   drop_head    the kernels, head 0 of the first attention layer zeroed
-  half_window  the kernels, every attention layer at half its window (half
-               the prompt where the layer has none)
+  half_window  the kernels, every attention layer at half its reach: half
+               its window, or of the prompt where the window is none or
+               reaches past the prompt
   lost_carry   the kernels, the first recurrent layer's scan restarted from
                zero LOST_CARRY_STEPS steps before the end
 
   PYTHONPATH=src python -m repro_torch.examples.logits_gap \
       --arch recurrentgemma-9b
+  PYTHONPATH=src python -m repro_torch.examples.logits_gap \
+      --arch mixtral-8x22b                      # 8 of its 56 layers
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 
@@ -37,6 +43,8 @@ from repro_torch.models.param import init_params_on_device
 from repro_torch.runtime import resolve_device
 
 BATCH, PROMPT = 2, 2048
+#: layers kept of the archs that do not fit one card at full width
+DEPTH_CUT = {"mixtral-8x22b": 8, "qwen3-moe-235b-a22b": 8}
 NUDGE_FRACTION = 1e-3
 LOST_CARRY_STEPS = 64
 
@@ -60,7 +68,8 @@ def drop_head(i, fn, q, k, v, **kw):
 
 
 def half_window(i, fn, q, k, v, *, window=0, **kw):
-    return fn(q, k, v, window=(window or q.shape[1]) // 2, **kw)
+    reach = min(window, q.shape[1]) if window else q.shape[1]
+    return fn(q, k, v, window=reach // 2, **kw)
 
 
 def lost_carry(i, fn, a, b, h0=None, **kw):
@@ -111,7 +120,9 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    model = build_model(get_config(args.arch))
+    cfg = get_config(args.arch)
+    layers_kept = DEPTH_CUT.get(args.arch, cfg.num_layers)
+    model = build_model(dataclasses.replace(cfg, num_layers=layers_kept))
     params = init_params_on_device(0, model.param_defs(), dev)
     toks = torch.as_tensor(np.random.default_rng(1).integers(
         0, model.cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32),
@@ -134,11 +145,13 @@ def main(argv=None):
         got = prefill_logits(model, params, toks, **kw)
         gaps[name] = float((got - plain).abs().max()) / scale
         agree = int((got.argmax(-1) == plain.argmax(-1)).sum())
-        print(f"{args.arch} full width, {BATCH}x{PROMPT} prefill, {name}: "
+        print(f"{args.arch} full width, {layers_kept} of {cfg.num_layers} "
+              f"layers, {BATCH}x{PROMPT} prefill, {name}: "
               f"last-position logits scale-relative max |diff| "
               f"{gaps[name]:.4g}, greedy agreement {agree}/{BATCH}",
               flush=True)
-    print(json.dumps({"arch": args.arch, "gaps": gaps}))
+    print(json.dumps({"arch": args.arch, "layers": layers_kept,
+                      "gaps": gaps}))
 
 
 if __name__ == "__main__":

@@ -12,6 +12,14 @@ batching loop.  Port of `repro.launch.serve`.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged
   PYTHONPATH=src python -m repro_torch.launch.serve --full --paged \\
       --batch 8 --prompt-len 512 --gen 32          # granite-20b, paged
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \\
+      --arch qwen3-moe-235b-a22b                   # an MoE LM
+
+`main(argv)` builds the config from `--arch` / `--smoke` / `--full` and
+hands it to `serve_config(cfg, args)`, which serves any ModelConfig: a
+caller with a config of its own (a full-width model cut in depth to fit
+one card, as chip_smoke.py serves the MoE archs) calls it with
+`parse_args([...])`.
 
 `--smoke` (the default) serves the arch's small config with the
 reference's Threefry-drawn params; `--full` serves the published width
@@ -25,12 +33,12 @@ the peak device memory.  The reference's weight-layout policy
 (`--layout`, `pick_layout`) belongs to the planning layer; this launcher
 prints the cache spec it serves with in its place.
 
-`--paged` (dense LMs) serves 2 x batch requests of `--prompt-len` random
-tokens through `PagedServeLoop` with `--batch` slots: they join as slots
-free up, the prompts stream through the block pool in chunks of
-max(4 x block size, 32), and the pool (`--num-blocks` of `--block-size`
-positions) defaults to batch x (prompt + gen) positions plus one block,
-as in the reference.  It prints the requests, tokens, tok/s, the pool,
+`--paged` (dense and MoE LMs without a sliding window) serves 2 x batch
+requests of `--prompt-len` random tokens through `PagedServeLoop` with
+`--batch` slots: they join as slots free up, the prompts stream through
+the block pool in chunks of max(4 x block size, 32), and the pool
+(`--num-blocks` of `--block-size` positions) defaults to batch x (prompt
++ gen) positions plus one block, as in the reference.  It prints the requests, tokens, tok/s, the pool,
 the shared blocks and preemptions, the chunk and decode steps, ms per
 decode tick and the kernel launches (the paged prefill attention is the
 reference's plain route: no flash_attention launch).
@@ -77,7 +85,7 @@ def _show(counts: dict, per: int = 1) -> str:
     return ", ".join(f"{name} {n / per:g}" for name, n in counts.items())
 
 
-def main(argv=None) -> dict:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-20b")
     ap.add_argument("--smoke", action="store_true", default=True)
@@ -99,12 +107,22 @@ def main(argv=None) -> dict:
     ap.add_argument("--num-blocks", type=int, default=0,
                     help="KV block pool size (default: sized so the pool "
                          "covers batch x (prompt+gen))")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    return serve_config(cfg, args)
+
+
+def serve_config(cfg, args: argparse.Namespace) -> dict:
+    """Serve `cfg` under the parsed options (`--arch` aside): its smoke
+    params from the Threefry key with `--smoke`, params drawn on the
+    device otherwise."""
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.cache != "auto":
         cfg = dataclasses.replace(cfg,
                                   cache_spec=CacheSpec.parse(args.cache).name)

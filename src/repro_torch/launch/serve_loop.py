@@ -8,12 +8,13 @@ Two cache disciplines behind one Request/submit/tick API:
   decode step runs for ALL slots each tick with per-slot positions, and
   finished slots are recycled.  Greedy decode is token-identical to
   serving each request alone (tests/test_torch_serve.py).  It serves the
-  dense family and the SSM (falcon-mamba), whose per-slot conv windows
+  dense and MoE families and the SSM (falcon-mamba), whose per-slot conv windows
   and states are written into the batched cache the same way; the hybrid
   (recurrentgemma) is served on the fixed-batch path only, as the
   reference's loop cannot serve its nested cache.
 
-* ``PagedServeLoop`` -- the BLOCK-TABLE PAGED cache (dense LMs): one KV
+* ``PagedServeLoop`` -- the BLOCK-TABLE PAGED cache (dense and MoE LMs
+  without a sliding window: a windowed layer raises ValueError): one KV
   block pool shared by all slots (core/paging.py: free list, refcounts,
   prefix sharing), per-slot block tables mapping position -> (block,
   offset), block-aligned chunked prefill whose tail pads to a power-of-two

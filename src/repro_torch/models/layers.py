@@ -1,4 +1,5 @@
-"""Core neural layers of the dense LMs, port of `repro.models.layers`.
+"""Core neural layers of the dense and MoE LMs, port of
+`repro.models.layers`.
 
 Conventions (the reference's):
   * activations bf16, softmax/normalisation statistics fp32;
@@ -13,7 +14,9 @@ chunk_prefill) take the reference's plain routes, as plain torch:
 `attention_full` up to 4,096 positions, the blockwise scans
 (`flash_attention_xla`, `flash_attention_xla_triangular`) above.  The
 paged cache (`paged_kv_write`, `paged_gather_kv`, `paged_chunk_attention`)
-is plain torch too, as the reference's is plain jnp.  The reference's
+is plain torch too, as the reference's is plain jnp, and so is the MoE
+layer (`moe_apply`: router, dispatch and combine gathers, expert
+products; the reference computes it outside Pallas).  The reference's
 `constrain(...)` sharding hints are no-ops on one device and are left
 out.  Kernel ops take `impl="auto"|"ref"`, threaded from `lm_apply`.
 """
@@ -494,6 +497,151 @@ def mlp_apply(p, cfg, x):
     else:
         h = act_fn(cfg.act)(h)
     return torch.matmul(h, p["w_down"])
+
+
+# --------------------------------------------------------------------------
+# MoE (gather-based dispatch, as the reference's: no (T, E, C) one-hot
+# einsum; the expert products are batched matmuls over the experts)
+# --------------------------------------------------------------------------
+
+def moe_defs(cfg):
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    return {
+        "w_router": pdef((d, E), ("embed", None), dtype=torch.float32,
+                         fan_in_axes=(0,)),
+        "w_gate": pdef((E, d, f), ("experts", "embed", "expert_ffn"),
+                       fan_in_axes=(1,)),
+        "w_up": pdef((E, d, f), ("experts", "embed", "expert_ffn"),
+                     fan_in_axes=(1,)),
+        "w_down": pdef((E, f, d), ("experts", "expert_ffn", "embed"),
+                       fan_in_axes=(1,)),
+    }
+
+
+def moe_capacity(cfg, tokens: int) -> int:
+    """Slots per expert in a group of `tokens`.  capacity_factor <= 0 is
+    DROPLESS: an expert takes at most one choice per token, so `tokens`
+    slots never overflow.  Otherwise the ceiling of the factor's share,
+    rounded up to a multiple of 8, at least 8."""
+    if cfg.capacity_factor <= 0:
+        return tokens
+    c = int(math.ceil(tokens * cfg.experts_per_token / cfg.num_experts
+                      * cfg.capacity_factor))
+    return max(8, -(-c // 8) * 8)
+
+
+def _moe_groups(B: int, T: int, min_tokens: int = 2048) -> int:
+    """Largest divisor of B keeping >= min_tokens tokens per group: the
+    groups in which routing and capacity are computed (the reference
+    shards them over its data axis)."""
+    g = B
+    while g > 1 and (B * T) // g < min_tokens:
+        g //= 2
+    while B % g != 0:
+        g -= 1
+    return max(g, 1)
+
+
+def moe_route(probs, k: int, C: int):
+    """The integer routing of one MoE layer.  probs: (G, ng, E) fp32 ->
+    gval (G, ng, k) fp32, the chosen probabilities normalised to sum 1;
+    gidx (G, ng, k) int64, the experts, best first; pos (G, ng, k), each
+    choice's slot in its expert; keep = pos < C.
+
+    Among equal probabilities the lower expert comes first, as
+    `lax.top_k` orders them (`torch.topk` promises no order for ties): a
+    stable descending sort.  Positions are a slot-major cumsum: choice 0
+    of every token in the group comes before choice 1 of any token."""
+    G, ng, E = probs.shape
+    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gval, gidx = srt.values[..., :k], srt.indices[..., :k]
+    gval = gval / gval.sum(-1, keepdim=True).clamp_min(1e-9)
+    onehot = F.one_hot(gidx, E)                            # (G, ng, k, E)
+    flat = onehot.transpose(1, 2).reshape(G, k * ng, E)
+    pos_flat = flat.cumsum(1) - flat
+    pos = pos_flat.reshape(G, k, ng, E).transpose(1, 2).gather(
+        -1, gidx[..., None])[..., 0]
+    return gval, gidx, pos, pos < C
+
+
+def moe_router(p, xg):
+    """Router probabilities (G, ng, E) of the grouped rows xg, in fp32."""
+    return torch.softmax(torch.matmul(xg.float(), p["w_router"]), dim=-1)
+
+
+def moe_dispatch(xg, gidx, pos, keep, E: int, C: int):
+    """Gather each expert's slots: xg (G, ng, d) -> xe (E, G * C, d),
+    expert-major.  An empty slot reads a zero row; a dropped choice
+    writes its token to a discarded row E of slot_token."""
+    G, ng, d = xg.shape
+    dev = xg.device
+    # slot_token[g, e, c]: the token (within group g) in slot c of expert
+    # e, ng where the slot is empty
+    slot = torch.where(keep, gidx, E) * C + torch.where(keep, pos, 0)
+    tok = torch.arange(ng, device=dev)[None, :, None].expand(gidx.shape)
+    slot_token = torch.full((G, (E + 1) * C), ng, dtype=torch.long,
+                            device=dev)
+    slot_token.scatter_(1, slot.reshape(G, -1), tok.reshape(G, -1))
+    # rows of x padded by one zero row a group, in (E, G, C) order
+    rows = (slot_token.view(G, E + 1, C)[:, :E].permute(1, 0, 2)
+            + (torch.arange(G, device=dev) * (ng + 1))[None, :, None])
+    x_pad = torch.cat([xg, xg.new_zeros(G, 1, d)], dim=1)
+    return x_pad.reshape(-1, d).index_select(0, rows.reshape(-1)).view(
+        E, G * C, d)
+
+
+def moe_experts(p, cfg, xe):
+    """The gated expert MLPs over their slots, batched over the experts:
+    xe (E, S, d) -> ye (E * S + 1, d), the slots' outputs and one zero
+    row after them (what a dropped choice reads)."""
+    E, S, d = xe.shape
+    h = act_fn(cfg.act)(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe,
+                                                                p["w_up"])
+    ye = torch.empty(E * S + 1, d, device=xe.device,
+                     dtype=torch.promote_types(h.dtype, p["w_down"].dtype))
+    ye[-1].zero_()
+    torch.bmm(h, p["w_down"], out=ye[:-1].view(E, S, d))
+    return ye
+
+
+def moe_combine(ye, gval, gidx, pos, keep, C: int):
+    """Each choice's slot output, weighted by gval (cast to ye's dtype)
+    where kept, summed over the k choices in ye's dtype -> (G, ng, d)."""
+    G, ng, k = gidx.shape
+    E = (ye.shape[0] - 1) // (G * C)
+    g_off = (torch.arange(G, device=ye.device) * C)[:, None, None]
+    slot_id = torch.where(keep, gidx * (G * C) + g_off + pos, E * G * C)
+    yk = ye.index_select(0, slot_id.reshape(-1)).view(G, ng, k, -1)
+    return torch.einsum("gnkd,gnk->gnd", yk, gval.to(ye.dtype) * keep)
+
+
+def moe_apply(p, cfg, x):
+    """Top-k routed expert MLP with per-group capacity and token dropping
+    -> (y, load-balance loss): router (fp32), routing, dispatch, experts,
+    combine.  Every row of x is routed and takes capacity, padding rows
+    included, as in the reference.  Dispatch and combine are row gathers
+    (`index_select`) through a zero row that empty slots and dropped
+    choices read."""
+    B, T, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    G = _moe_groups(B, T)
+    C = moe_capacity(cfg, B * T // G)
+    xg = x.reshape(G, -1, d)
+    probs = moe_router(p, xg)
+    gval, gidx, pos, keep = moe_route(probs, k, C)
+    ye = moe_experts(p, cfg, moe_dispatch(xg, gidx, pos, keep, E, C))
+    y = moe_combine(ye, gval, gidx, pos, keep, C)
+    aux = _load_balance_loss(probs.reshape(B * T, E),
+                             F.one_hot(gidx, E).reshape(B * T, k, E), E, k)
+    return y.reshape(B, T, d), aux
+
+
+def _load_balance_loss(probs, onehot, E, k):
+    """Switch-style auxiliary loss: E * sum(frac_tokens * frac_probs),
+    every choice counted before drops."""
+    frac_tokens = onehot.sum(dim=(0, 1)).float() / (probs.shape[0] * k)
+    frac_probs = probs.mean(dim=0)
+    return E * torch.sum(frac_tokens * frac_probs)
 
 
 # --------------------------------------------------------------------------

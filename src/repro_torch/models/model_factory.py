@@ -1,14 +1,14 @@
 """Unified model interface: one `Model` object per architecture config.
 
 Model exposes, as `repro.models.Model` does for the families ported so far
-(cnn, mlp, dense, ssm, hybrid):
+(cnn, mlp, dense, moe, ssm, hybrid):
   param_defs()                      -> dict tree of ParamDef
   init(key, device)                 -> concrete params on `device`
   apply(params, batch, mode, cache) -> (logits, aux_or_cache)
   cache_defs(batch, seq)            -> dict tree of ParamDef (decode cache)
   paged_cache_defs(batch, num_blocks, block_size, max_blocks_per_seq)
-                                    -> the block-pool cache (dense LMs)
-  n_params                          -> int
+                                    -> the block-pool cache (dense, MoE)
+  n_params / n_active_params        -> int
 """
 from __future__ import annotations
 
@@ -76,10 +76,28 @@ class Model:
     def n_params(self) -> int:
         return count_params(self.param_defs())
 
+    @property
+    def n_active_params(self) -> int:
+        """Per-token active parameters (MoE: only k of E experts count)."""
+        cfg = self.cfg
+        if not cfg.num_experts:
+            return self.n_params
+        defs = self.param_defs()
+        total = count_params(defs)
+        moe = defs["layers"].get("moe")
+        if moe is None:
+            return total
+        expert_total = sum(int(np.prod(moe[name].shape))
+                           for name in ("w_gate", "w_up", "w_down"))
+        active = expert_total * cfg.experts_per_token / cfg.num_experts
+        return int(total - expert_total + active)
+
 
 _FAMILY = {
     "dense": (transformer.lm_defs, transformer.lm_apply,
               transformer.cache_defs),
+    "moe": (transformer.lm_defs, transformer.lm_apply,
+            transformer.cache_defs),
     "ssm": (ssm.ssm_lm_defs, ssm.ssm_lm_apply, ssm.ssm_cache_defs),
     "hybrid": (rglru.hybrid_lm_defs, rglru.hybrid_lm_apply,
                rglru.hybrid_cache_defs),

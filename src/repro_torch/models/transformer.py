@@ -1,6 +1,8 @@
-"""Decoder-only dense LM, port of `repro.models.transformer`, 4 modes:
+"""Decoder-only LM (dense and MoE blocks), port of
+`repro.models.transformer`, 4 modes:
 
-  train         -- full-sequence forward, returns (logits, aux)
+  train         -- full-sequence forward, returns (logits, aux: the MoE
+                   load-balance loss summed over layers, 0.0 for dense)
   prefill       -- full-sequence forward, returns (last-position logits,
                    cache)
   decode        -- single-token step with a contiguous KV cache or a
@@ -14,8 +16,10 @@ Layer params stay stacked (L, ...) as the reference's `lax.scan` takes
 them (so `from_reference` moves them leaf for leaf, and a full-width
 model is never held twice); the port loops over L in Python and indexes
 the stack.  Caches are stacked (L, ...) too; decode and chunk_prefill
-write each layer's new K/V rows into them in place.  MoE blocks and the
-VLM stub frontend are later slices.
+write each layer's new K/V rows into them in place.  Every mode runs
+each layer's MoE block on the rows it is given (padding rows of a
+bucketed chunk and idle decode slots included, as in the reference).
+The VLM stub frontend is a later slice.
 """
 from __future__ import annotations
 
@@ -28,12 +32,16 @@ from repro_torch.tree import tree_map
 
 
 def block_defs(cfg):
-    return {
+    d = {
         "ln1": L.norm_defs(cfg),
         "attn": L.attention_defs(cfg),
         "ln2": L.norm_defs(cfg),
-        "mlp": L.mlp_defs(cfg),
     }
+    if cfg.family == "moe" or (cfg.num_experts and cfg.family != "dense"):
+        d["moe"] = L.moe_defs(cfg)
+    else:
+        d["mlp"] = L.mlp_defs(cfg)
+    return d
 
 
 def lm_defs(cfg):
@@ -66,7 +74,11 @@ def _block_apply(p, cfg, x, positions, mode, cache, impl="auto"):
                                      mode=mode, cache=cache, impl=impl)
     x = x + a
     h = L.apply_norm(p["ln2"], x)
-    return x + L.mlp_apply(p["mlp"], cfg, h), new_cache
+    if "moe" in p:
+        m, aux = L.moe_apply(p["moe"], cfg, h)
+    else:
+        m, aux = L.mlp_apply(p["mlp"], cfg, h), 0.0
+    return x + m, new_cache, aux
 
 
 def _embed_inputs(params, cfg, batch_inputs):
@@ -94,7 +106,7 @@ def lm_apply(params, cfg, batch_inputs, *, mode="train", cache=None,
                                  device=x.device)[None].expand(B, T)
     bt = batch_inputs.get("block_tables")   # (B, nbmax): paged chunks only
 
-    new_caches = []
+    new_caches, aux = [], 0.0
     for i in range(cfg.num_layers):
         lp = tree_map(lambda a: a[i], params["layers"])
         lc = None
@@ -102,7 +114,9 @@ def lm_apply(params, cfg, batch_inputs, *, mode="train", cache=None,
             lc = tree_map(lambda a: a[i], cache)
             if bt is not None:
                 lc["bt"] = bt
-        x, new_cache = _block_apply(lp, cfg, x, positions, mode, lc, impl)
+        x, new_cache, a = _block_apply(lp, cfg, x, positions, mode, lc,
+                                       impl)
+        aux = aux + a
         if mode == "prefill":
             new_caches.append(new_cache)
         elif mode != "train" and "len" in new_cache:
@@ -118,7 +132,7 @@ def lm_apply(params, cfg, batch_inputs, *, mode="train", cache=None,
     x = L.apply_norm(params["final_norm"], x)
     logits = L.unembed_apply(params["embed"], x)
     if mode == "train":
-        return logits, 0.0      # no MoE blocks, so no load-balance loss
+        return logits, aux
     if mode == "prefill":
         return logits, tree_map(lambda *ls: torch.stack(ls), *new_caches)
     # k/v (and scales, or the paged pool) were written in place into the

@@ -105,7 +105,7 @@ def test_loss_gradients_match_reference(arch):
 
 
 def test_unported_family_raises():
-    cfg = dataclasses.replace(get_config("flight-cnn-mnist"), family="moe")
+    cfg = dataclasses.replace(get_config("flight-cnn-mnist"), family="vlm")
     with pytest.raises(NotImplementedError):
         build_model(cfg)
 

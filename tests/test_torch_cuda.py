@@ -621,6 +621,55 @@ def test_one_flash_launch_per_layer_per_prefill(cuda, arch):
                                atol=2e-2)
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-235b-a22b"])
+def test_moe_smoke_on_card(cuda, arch):
+    """An MoE smoke model on the card: one wgmma flash launch per layer in
+    a prefill, none in a decode step; each layer's routing on the card
+    equal, bit for bit, to moe_route on the CPU from the same
+    probabilities (capacity factor 0.25, so choices drop)."""
+    import dataclasses
+    from repro_torch import threefry
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models import build_model, layers
+    cfg = dataclasses.replace(get_smoke_config(arch), capacity_factor=0.25)
+    model = build_model(cfg)
+    params = model.init(threefry.key(0), cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 37), device=cuda,
+                         dtype=torch.int32)
+    route, calls = layers.moe_route, []
+
+    def recorded(probs, k, C):
+        out = route(probs, k, C)
+        calls.append((probs.cpu(), k, C, [t.cpu() for t in out]))
+        return out
+
+    before = fa.flash_attention_cuda.launches
+    on_wgmma = fa.flash_attention_cuda.routes["wgmma"]
+    layers.moe_route = recorded
+    try:
+        with torch.no_grad():
+            logits, cache = model.apply(params, {"tokens": toks},
+                                        mode="prefill")
+            L = cfg.num_layers
+            assert fa.flash_attention_cuda.launches == before + L
+            assert fa.flash_attention_cuda.routes["wgmma"] == on_wgmma + L
+            model.apply(params, {"tokens": toks[:, :1]}, mode="decode",
+                        cache=cache)
+            assert fa.flash_attention_cuda.launches == before + L
+    finally:
+        layers.moe_route = route
+    assert len(calls) == 2 * cfg.num_layers
+    assert bool(torch.isfinite(logits.float()).all())
+    dropped = 0
+    for probs, k, C, got in calls:
+        want = route(probs, k, C)
+        for g, w in zip(got[1:], want[1:]):
+            assert torch.equal(g, w)
+        dropped += int((~got[3]).sum())
+    assert dropped > 0
+
+
 def test_serve_loop_on_card_matches_solo(cuda):
     """Continuous batching on the card, granite smoke with an int8 cache
     (quant8 kernels in the cache path): token-identical to solo serving."""

@@ -72,7 +72,7 @@ def test_configs_equal(name):
 
 def test_unported_arch_is_unknown():
     with pytest.raises(KeyError):
-        get_config("mixtral-8x22b")
+        get_config("phi-3-vision-4.2b")
 
 
 def _fleets(n_workers=8, seed=4):
