@@ -83,10 +83,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      bf16 (3e-4 / 3e-2), and strided views on the mma.sync and FMA routes,
      printing each shape's route (kernel.route: wgmma for bf16 that TMA
      can describe, mma / fma for the rest), mixtral-8x22b's GQA group of 6
-     under its window of 4,096 at T = 5,000 and qwen3-moe's group of 16
-     at D = 64 among them; then time it at granite-20b's and
-     recurrentgemma-9b's full-width prefill shapes and at those two MoE
-     shapes beside the bound, the plain version and one
+     under its window of 4,096 at T = 5,000, qwen3-moe's group of 16
+     at D = 64, phi-3-vision's D = 96 under MHA 32/32 (T = 77 and 2,048,
+     and a strided view on mma.sync) and seamless-m4t's non-causal D = 64
+     among them; then time it at granite-20b's and recurrentgemma-9b's
+     full-width prefill shapes, at those two MoE shapes and at
+     phi-3-vision's and seamless-m4t's (encoder, decoder) beside the
+     bound, the plain version and one
      scaled_dot_product_attention call (a yardstick the port never calls;
      a window the prompt passes as a boolean mask over K/V repeated to
      every head);
@@ -175,12 +178,29 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      the serve's prefill and decode shapes;
   21. qwen3-moe-235b-a22b the same (8 of 94 layers, 20.86 B params,
      41.72 GB; 128 experts, top-8);
-  22. print the kernel table as JSON (flash_attention's launches by
+  22. phi-3-vision-4.2b at full width (3.82 B params, nothing cut):
+     `serve.py --arch phi-3-vision-4.2b --full --batch 8 --prompt-len
+     2048 --gen 32` through its main (576 patch embeddings and 1,472 text
+     positions a prompt), 32 flash launches in the prefill, all wgmma
+     (D = 96), none a decode step; its 2 x 2,048 prefill's attention held
+     layer by layer against the plain version (3e-2) and its
+     last-position logits within LM_LOGITS_TOL; then a ServeLoop (4 slots
+     x 4,096) draining text prompts of 1, 77, 300 and 2,047 tokens, 16 new
+     tokens each, each first token equal to its solo prefill's;
+  23. seamless-m4t-large-v2 at full width (1.63 B params, nothing cut):
+     the same fixed-batch serve (8 x 2,048 frames and tokens, 32 new
+     tokens), 72 flash launches a prefill (24 encoder, non-causal; 24
+     decoder self attention; 24 cross attention, non-causal, frames as
+     long as the prompt), all wgmma, none a decode step; the check
+     prefill held layer by layer (encoder, self and cross attention) and
+     in its logits; its ServeLoop must be refused, as the reference's
+     cannot serve it;
+  24. print the kernel table as JSON (flash_attention's launches by
      path), then the result line.
 
 Each model is freed before the next one is drawn (40.6 GB of weights
-for phases 11-12 and again for 13-15, then 14.6, 20.9, 40.9 and 41.7
-GB).
+for phases 11-12 and again for 13-15, then 14.6, 20.9, 40.9, 41.7, 7.6
+and 3.3 GB).
 """
 from __future__ import annotations
 
@@ -294,11 +314,17 @@ FA_SWEEP = [(2, 256, 4, 4, 64, 0, True), (2, 256, 4, 2, 64, 0, True),
             (1, 300, 8, 8, 128, 0, False), (1, 130, 3, 3, 200, 50, False),
             (1, 300, 4, 1, 256, 0, True), (1, 4097, 4, 1, 128, 0, True),
             (2, 700, 4, 1, 256, 300, True), (1, 520, 48, 1, 128, 0, True),
-            *((*shape, True) for shape in FA_MOE.values())]
+            *((*shape, True) for shape in FA_MOE.values()),
+            # phi-3-vision's D = 96 under MHA 32/32, padded to 128 by the
+            # TMA box (an odd T, and its prefill length); seamless-m4t's
+            # non-causal D = 64 (its encoder and cross attention)
+            (2, 77, 32, 32, 96, 0, True), (1, 2048, 32, 32, 96, 0, True),
+            (1, 300, 16, 16, 64, 0, False), (2, 2048, 16, 16, 64, 0, False)]
 # bf16 q/k/v as views of one fused (B, T, 6, D + pad) projection, (D, pad,
 # route): a row padded by 8 keeps TMA's strides; by 1, mma.sync (D <= 128)
 # or the FMA kernel (D > 128) takes it
-FA_STRIDED = [(128, 8, "wgmma"), (64, 1, "mma"), (200, 1, "fma")]
+FA_STRIDED = [(128, 8, "wgmma"), (64, 1, "mma"), (200, 1, "fma"),
+              (96, 1, "mma")]
 FA_TOL = {"float32": 3e-4, "bfloat16": 3e-2}    # tests/test_kernels.py
 LM_ARCH = "granite-20b"
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
@@ -321,8 +347,20 @@ LM_CHECK_BATCH = 2      # plain-version prefill: fp32 scores, 1.6 GB a layer
 # 0.2119 (PERF.md section 6).  The attention kernel is held per layer at
 # 3e-2 and the routing bit for bit besides.
 MOE_LOGITS_TOL = {"mixtral-8x22b": 3.5e-2, "qwen3-moe-235b-a22b": 0.14}
+# phi-3-vision-4.2b and seamless-m4t-large-v2 at full width, nothing cut,
+# each near the geometric mean of its largest rounding reading and its
+# smallest planted fault (examples/logits_gap.py on an H100, PERF.md
+# section 6): phi-3-vision kernels 0.0220, nudge 0.0238 against drop_head
+# 0.1268; seamless-m4t kernels 0.0121, nudge 0.0106 against drop_head
+# (its decoder's self attention) 0.0163, the encoder's 0.0237, the cross
+# attention's 0.0940.  seamless-m4t's margin is narrow (1.16x its kernel
+# reading, which repeats to the digit on these fixed inputs); its
+# attention is held per layer and per kind at 3e-2 besides.
+FAMILY_LOGITS_TOL = {"phi-3-vision-4.2b": 5.5e-2,
+                     "seamless-m4t-large-v2": 1.4e-2}
 LM_LOGITS_TOL = {"granite-20b": 2e-2, "falcon-mamba-7b": 2e-2,
-                 "recurrentgemma-9b": 3.5e-2, **MOE_LOGITS_TOL}
+                 "recurrentgemma-9b": 3.5e-2, **MOE_LOGITS_TOL,
+                 **FAMILY_LOGITS_TOL}
 LOOP_LENGTHS = (1, 77, 300, 1000, 2047, 513, 64, 1500)
 LOOP_SLOTS, LOOP_MAX_LEN, LOOP_NEW = 4, 4096, 16
 # paged serving through serve.py --paged: batch slots, prompt, new tokens
@@ -350,6 +388,20 @@ FA_HYBRID = (HYBRID_BATCH, LM_PROMPT, 16, 1, 256, 2048)
 MOE_ARCHS = ("mixtral-8x22b", "qwen3-moe-235b-a22b")
 MOE_BATCH = 4
 MOE_LOOP_LENGTHS = (1, 77, 300, 2047)
+# the VLM stub and the enc-dec at full width, nothing cut, served at
+# FAMILY_BATCH x LM_PROMPT (phi-3-vision: 576 patch embeddings and 1,472
+# text positions a prompt; seamless-m4t: LM_PROMPT frames and tokens)
+VLM_ARCH, AUDIO_ARCH = "phi-3-vision-4.2b", "seamless-m4t-large-v2"
+FAMILY_BATCH = 8
+FAMILY_LOOP_LENGTHS = (1, 77, 300, 2047)    # the VLM's ServeLoop prompts
+# their prefill attention (B, T, H, Hkv, D, window, causal), timed beside
+# the bound: phi-3-vision's D = 96; seamless-m4t's encoder (its cross
+# attention, at T == S, has the same shape) and decoder self attention
+FA_FAMILY = {VLM_ARCH: (FAMILY_BATCH, LM_PROMPT, 32, 32, 96, 0, True),
+             f"{AUDIO_ARCH} encoder": (FAMILY_BATCH, LM_PROMPT, 16, 16, 64,
+                                       0, False),
+             f"{AUDIO_ARCH} decoder": (FAMILY_BATCH, LM_PROMPT, 16, 16, 64,
+                                       0, True)}
 
 
 def check(ok: bool, msg: str):
@@ -868,8 +920,10 @@ def attention_pairs(T: int, window: int, causal: bool) -> int:
 def flash_sweep(torch):
     """flash_attention vs its plain version over FA_SWEEP x dtype and the
     FA_STRIDED views, each on the route kernel.route gives it; then
-    granite-20b's and recurrentgemma-9b's full-width prefill shapes and
-    the MoE archs' (FA_MOE), timed; -> their records, by arch."""
+    granite-20b's and recurrentgemma-9b's full-width prefill shapes, the
+    MoE archs' (FA_MOE) and phi-3-vision's and seamless-m4t's
+    (FA_FAMILY), timed; -> their records, by arch (seamless-m4t's by arch
+    and part)."""
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda, route
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -917,28 +971,30 @@ def flash_sweep(torch):
         held("bfloat16", f"strided views D={D} (rows of {D + pad}) "
              "window=100", q, k, v, 100, True)
     recs = {}
-    for arch, (B, T, H, Hkv, D, window) in (
-            (LM_ARCH, (*FA_MAIN, 0)), (HYBRID_ARCH, FA_HYBRID),
-            *FA_MOE.items()):
+    timed = {LM_ARCH: (*FA_MAIN, 0, True), HYBRID_ARCH: (*FA_HYBRID, True),
+             **{arch: (*shape, True) for arch, shape in FA_MOE.items()},
+             **FA_FAMILY}
+    for arch, (B, T, H, Hkv, D, window, causal) in timed.items():
         q, k, v = qkv(B, T, H, Hkv, D, torch.bfloat16)
         check(route(q, k, v) == "wgmma", f"{arch} prefill attention route "
               f"{route(q, k, v)}")
-        got = flash_attention_cuda(q, k, v, window=window)
-        err = float((got.float() - plain(q, k, v, window).float()).abs().max())
+        got = flash_attention_cuda(q, k, v, window=window, causal=causal)
+        err = float((got.float() - plain(q, k, v, window, causal).float())
+                    .abs().max())
         check(err <= FA_TOL["bfloat16"], f"flash_attention {arch} full "
               f"width: {err}")
         del got
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        ms = graph_ms(torch, lambda: flash_attention_cuda(q, k, v,
-                                                          window=window), 5)
-        plain_ms = graph_ms(torch, lambda: plain(q, k, v, window), 2)
+        ms = graph_ms(torch, lambda: flash_attention_cuda(
+            q, k, v, window=window, causal=causal), 5)
+        plain_ms = graph_ms(torch, lambda: plain(q, k, v, window, causal), 2)
         # the yardstick: is_causal=True is recurrentgemma's window of 2,048
         # at T = 2,048 (every key j <= t also has j > t - 2,048); a window
         # the prompt passes (mixtral's) is a boolean mask over K/V repeated
         # to every head
         if window in (0, T):
             lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
         else:
             t = torch.arange(T, device="cuda")
             mask = (t[None] <= t[:, None]) & (t[None] > t[:, None] - window)
@@ -946,7 +1002,7 @@ def flash_sweep(torch):
             lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kr, vr, attn_mask=mask), 20)
             del kr, vr, mask
-        flops = 4 * D * attention_pairs(T, window, True) * B * H
+        flops = 4 * D * attention_pairs(T, window, causal) * B * H
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
         # P kept as hi + lo bf16 doubles the P V half of the tensor work
@@ -955,7 +1011,8 @@ def flash_sweep(torch):
                       "library_ms": lib_ms, "bound_ms": b_ms,
                       "bound_by": b_by}
         print(f"flash_attention {arch} full width B={B} T={T} H={H} Hkv={Hkv}"
-              f" D={D} window={window} bf16 causal, route wgmma: {ms:.4f} ms "
+              f" D={D} window={window} bf16 causal={causal}, route wgmma: "
+              f"{ms:.4f} ms "
               f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
               f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
               f"{flops:.4g} FLOPs, {nbytes / 1e9:.3f} GB; {b_ms / ms:.2%} of "
@@ -968,7 +1025,12 @@ def flash_sweep(torch):
 
 def layer_counts(cfg) -> dict:
     """Launches of each kernel in one prefill of `cfg`'s model: flash for
-    every attention layer, linrec for every recurrent (SSM, RG-LRU) one."""
+    every attention layer, linrec for every recurrent (SSM, RG-LRU) one.
+    The enc-dec's frames have the prompt's length here, so each decoder
+    layer's cross attention (T == S) launches flash too."""
+    if cfg.is_encdec:
+        return {"flash_attention": cfg.enc_layers + 2 * cfg.num_layers,
+                "linrec": 0}
     if cfg.family == "ssm":
         return {"flash_attention": 0, "linrec": cfg.num_layers}
     if cfg.family == "hybrid":
@@ -976,6 +1038,16 @@ def layer_counts(cfg) -> dict:
         n_super, n_tail = hybrid_counts(cfg)
         return {"flash_attention": n_super, "linrec": 2 * n_super + n_tail}
     return {"flash_attention": cfg.num_layers, "linrec": 0}
+
+
+def attention_call_kinds(cfg) -> list:
+    """The kind of each attention call of one prefill, in call order: the
+    enc-dec's encoder layers first, then each decoder layer's self and
+    cross attention."""
+    if cfg.is_encdec:
+        return ["encoder"] * cfg.enc_layers \
+            + ["self", "cross"] * cfg.num_layers
+    return ["self"] * layer_counts(cfg)["flash_attention"]
 
 
 def decode_counts(cfg) -> dict:
@@ -1051,16 +1123,19 @@ def lm_serve(torch, arch: str, batch: int, layers: int = 0):
 
 
 def lm_kernel_vs_plain(torch, model, params):
-    """A batch of LM_CHECK_BATCH x LM_PROMPT prefilled through the kernels,
-    each layer's attention and scan output held against the plain version
-    on the same inputs, then the whole prefill through the plain versions:
-    last-position logits within the arch's LM_LOGITS_TOL.  An MoE model's
-    routing is copied to the host in every layer of both prefills: the
-    card's choices, positions and drops must equal moe_route's on the CPU
-    from the same probabilities, bit for bit; the share of dropped
-    choices and of tokens routed otherwise in the plain prefill are
-    printed."""
+    """A batch of LM_CHECK_BATCH x LM_PROMPT (serve.make_batch: tokens,
+    and the VLM's patch embeddings or the enc-dec's frames) prefilled
+    through the kernels, each layer's attention (the enc-dec's encoder,
+    decoder self and cross attention) and scan output held against the
+    plain version on the same inputs, then the whole prefill through the
+    plain versions: last-position logits within the arch's
+    LM_LOGITS_TOL.  An MoE model's routing is copied to the host in every
+    layer of both prefills: the card's choices, positions and drops must
+    equal moe_route's on the CPU from the same probabilities, bit for
+    bit; the share of dropped choices and of tokens routed otherwise in
+    the plain prefill are printed."""
     from repro_torch.kernels.linrec import ops as linrec_ops
+    from repro_torch.launch.serve import make_batch
     from repro_torch.models import layers
     arch = model.cfg.name
     route, routed = layers.moe_route, {"kernels": [], "plain": []}
@@ -1070,10 +1145,8 @@ def lm_kernel_vs_plain(torch, model, params):
         routed[run].append((probs.cpu(), k, C, [t.cpu() for t in out]))
         return out
 
-    rng = np.random.default_rng(1)
-    toks = torch.as_tensor(rng.integers(
-        0, model.cfg.vocab_size, (LM_CHECK_BATCH, LM_PROMPT)).astype(
-            np.int32), device="cuda")
+    batch = make_batch(model.cfg, np.random.default_rng(1), LM_CHECK_BATCH,
+                       LM_PROMPT, "cuda")
     select, scan = layers.select_attention, linrec_ops.linrec
     errs = {"flash_attention": [], "linrec": []}
 
@@ -1095,11 +1168,10 @@ def lm_kernel_vs_plain(torch, model, params):
     layers.moe_route, run = recorded_route, "kernels"
     try:
         with torch.no_grad():
-            lk, _ = model.apply(params, {"tokens": toks}, mode="prefill")
+            lk, _ = model.apply(params, batch, mode="prefill")
             layers.select_attention, linrec_ops.linrec = select, scan
             run = "plain"
-            lr, _ = model.apply(params, {"tokens": toks}, mode="prefill",
-                                impl="ref")
+            lr, _ = model.apply(params, batch, mode="prefill", impl="ref")
     finally:
         layers.select_attention, linrec_ops.linrec = select, scan
         layers.moe_route = route
@@ -1118,6 +1190,13 @@ def lm_kernel_vs_plain(torch, model, params):
         f"{name} vs plain per layer max |diff| {err:.3g} "
         f"({len(errs[name])} layers, tol {tols[name]})"
         for name, err in layer_errs.items())
+    by_kind = {}     # the call counts are checked below
+    for kind, err in zip(attention_call_kinds(model.cfg),
+                         errs["flash_attention"]):
+        by_kind[kind] = max(by_kind.get(kind, 0.0), err)
+    if len(by_kind) > 1:
+        per_layer += " (by kind: " + ", ".join(
+            f"{kind} {err:.3g}" for kind, err in by_kind.items()) + ")"
     print(f"{arch} full width, {LM_CHECK_BATCH}x{LM_PROMPT} prefill: "
           f"{per_layer}; last-position logits scale-relative max |diff| "
           f"{rel:.3g}, rms |diff| / rms {rms:.3g}, tol {logits_tol:.3g}; "
@@ -1131,7 +1210,8 @@ def lm_kernel_vs_plain(torch, model, params):
           "non-finite prefill logits")
     check(rel <= logits_tol, f"{arch} prefill logits, kernels vs plain: "
           f"scale-relative max |diff| {rel} > {logits_tol}")
-    return {"layer_max_abs_err": layer_errs, "logits_rel": rel, **routing}
+    return {"layer_max_abs_err": layer_errs, "attention_by_kind": by_kind,
+            "logits_rel": rel, **routing}
 
 
 def moe_routing_check(arch, routed) -> dict:
@@ -1272,6 +1352,44 @@ def lm_serve_loop(torch, model, params, lengths):
           "agree (bf16 near-ties may flip across batch sizes; reported, "
           "not pinned)", flush=True)
     return launches
+
+
+def family_serve(torch, arch: str, card: str) -> dict:
+    """phi-3-vision-4.2b or seamless-m4t-large-v2 at full width, counted
+    from zero: the serve entry point at FAMILY_BATCH x LM_PROMPT, the
+    kernels-vs-plain check prefill, then the ServeLoop: the VLM's drains
+    FAMILY_LOOP_LENGTHS' text prompts, the enc-dec's must be refused (the
+    reference's cannot serve it); -> the phase's record."""
+    from repro_torch.launch.serve_loop import ServeLoop
+    t0 = time.perf_counter()
+    res, serve_launches, peak = lm_serve(torch, arch, FAMILY_BATCH)
+    model, params = res["model"], res["params"]
+    steps = res["decode_steps"]
+    rec = {"serve": serve_launches, "peak_gb": peak,
+           "prefill_ms": res["prefill_s"] * 1e3,
+           "decode_ms": res["decode_s"] * 1e3 / steps}
+    del res
+    rec.update(lm_kernel_vs_plain(torch, model, params))
+    if model.cfg.is_encdec:
+        refusal = None
+        try:
+            ServeLoop(model, params, max_batch=LOOP_SLOTS,
+                      max_len=LOOP_MAX_LEN)
+        except NotImplementedError as err:
+            refusal = str(err)
+        check(refusal is not None, f"ServeLoop {arch}: not refused")
+        print(f"ServeLoop {arch}: refused ({refusal})", flush=True)
+    else:
+        rec["loop"] = lm_serve_loop(torch, model, params,
+                                    FAMILY_LOOP_LENGTHS)
+    rec["wall_s"] = time.perf_counter() - t0
+    print(f"{arch} full width, phase: prefill {FAMILY_BATCH}x{LM_PROMPT} "
+          f"{rec['prefill_ms']:.1f} ms, decode {rec['decode_ms']:.2f} "
+          f"ms/step, peak {peak:.2f} GB, {rec['wall_s']:.1f} s wall "
+          f"({card})", flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+    return rec
 
 
 def paged_serve(torch, card: str):
@@ -2104,7 +2222,13 @@ def main() -> int:
         del model, params
         torch.cuda.empty_cache()
 
-    # 22. results
+    # 22-23. phi-3-vision-4.2b (the VLM stub) and seamless-m4t-large-v2
+    #        (the enc-dec) at full width, counted from zero: serve,
+    #        kernels vs plain, the ServeLoop (refused for the enc-dec)
+    fam = {arch: family_serve(torch, arch, card)
+           for arch in (VLM_ARCH, AUDIO_ARCH)}
+
+    # 24. results
     # fed_agg on its main path: one grouped launch over the async merge's
     # tree; library_ms is one einsum over the same elements as a (2, N)
     # stack (the sweep's (2, 20,490) row), which no tree call has
@@ -2154,9 +2278,10 @@ def main() -> int:
                    f"{LM_ARCH} ServeLoop": loop_launches["flash_attention"],
                    f"{HYBRID_ARCH} serve":
                        hybrid_launches["flash_attention"]}
-    for arch, r in moe.items():
+    for arch, r in (*moe.items(), *fam.items()):
         flash_paths[f"{arch} serve"] = r["serve"]["flash_attention"]
-        flash_paths[f"{arch} ServeLoop"] = r["loop"]["flash_attention"]
+        if "loop" in r:
+            flash_paths[f"{arch} ServeLoop"] = r["loop"]["flash_attention"]
     table.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2168,7 +2293,9 @@ def main() -> int:
         "plain_ms": fa_main["plain_ms"], "bound_ms": fa_main["bound_ms"],
         "bound_by": fa_main["bound_by"],
         "library_ms": fa_main["library_ms"],
-        "moe_shapes": {arch: fa_recs[arch] for arch in MOE_ARCHS}})
+        # the other full-width prefill shapes, timed in the same call
+        "other_shapes": {arch: r for arch, r in fa_recs.items()
+                         if arch != LM_ARCH}})
     # linrec on its main path: the tma route at falcon's prefill scan; the
     # column kernel (the other route) read in the same call
     lr = lr_main[f"{SSM_ARCH} prefill"]
@@ -2194,9 +2321,10 @@ def main() -> int:
           f"{hybrid_launches}. "
           f"Serve peak memory: {LM_ARCH} {lm_peak:.2f} GB, {SSM_ARCH} "
           f"{ssm_peak:.2f} GB, {HYBRID_ARCH} {hybrid_peak:.2f} GB, "
-          + ", ".join(f"{arch} ({DEPTH_CUT[arch]} layers) "
-                      f"{r['peak_gb']:.2f} GB"
-                      for arch, r in moe.items()), flush=True)
+          + ", ".join([f"{arch} ({DEPTH_CUT[arch]} layers) "
+                       f"{r['peak_gb']:.2f} GB" for arch, r in moe.items()]
+                      + [f"{arch} {r['peak_gb']:.2f} GB"
+                         for arch, r in fam.items()]), flush=True)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

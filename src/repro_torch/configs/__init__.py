@@ -1,9 +1,9 @@
 """Architecture registry of the port: the architectures it can build.
 
 `get_config(name)` / `get_smoke_config(name)` behave as in
-`repro.configs`, restricted to what the port has: the paper's own Tier-A
-models, the dense LMs, the MoE LMs and the recurrent LMs (ssm, hybrid).
-The VLM and enc-dec archs are not registered yet (ROADMAP queue 1)."""
+`repro.configs`: the paper's own Tier-A models, the dense LMs, the MoE
+LMs, the recurrent LMs (ssm, hybrid), the VLM stub (phi-3-vision) and the
+audio encoder-decoder (seamless-m4t)."""
 from __future__ import annotations
 
 import importlib
@@ -19,6 +19,8 @@ _ARCHS = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     # the paper's own workloads (Tier-A FL experiments)
     "flight-cnn-mnist": "flight_cnn",
     "flight-cnn-cifar": "flight_cnn",

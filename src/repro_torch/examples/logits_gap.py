@@ -6,7 +6,9 @@ chip_smoke.py's per-arch LM_LOGITS_TOL.
 
 One arch at full width, params drawn on the card from seed 0 as
 `launch/serve.py` draws them, and chip_smoke.py's check batch: 2 x 2,048
-tokens from numpy's default_rng(1).  The MoE archs, which do not fit one
+positions from numpy's default_rng(1) through `serve.make_batch` (tokens;
+phi-3-vision's 576 patch embeddings; seamless-m4t's frames, as many as
+the tokens).  The MoE archs, which do not fit one
 card whole, keep their full width and are cut to chip_smoke.py's depth
 (DEPTH_CUT: 8 layers).  Each reading is max |diff| /
 max |plain| over the last position's logits, against the plain prefill:
@@ -15,6 +17,9 @@ max |plain| over the last position's logits, against the plain prefill:
   nudge        the plain path with one bf16 ulp (x (1 + 2^-8)) nudged into
                0.1 % of the first mixer layer's outputs
   drop_head    the kernels, head 0 of the first attention layer zeroed
+               (the decoder's self attention); for the enc-dec also
+               drop_head_encoder and drop_head_cross, head 0 of the first
+               encoder layer's and of the first cross attention's output
   half_window  the kernels, every attention layer at half its reach: half
                its window, or of the prompt where the window is none or
                reaches past the prompt
@@ -25,6 +30,8 @@ max |plain| over the last position's logits, against the plain prefill:
       --arch recurrentgemma-9b
   PYTHONPATH=src python -m repro_torch.examples.logits_gap \
       --arch mixtral-8x22b                      # 8 of its 56 layers
+  PYTHONPATH=src python -m repro_torch.examples.logits_gap \
+      --arch seamless-m4t-large-v2
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels.linrec import ops as linrec_ops
+from repro_torch.launch.serve import make_batch
 from repro_torch.models import build_model, layers
 from repro_torch.models.param import init_params_on_device
 from repro_torch.runtime import resolve_device
@@ -59,12 +67,28 @@ def nudge(i, fn, *args, **kw):
     return torch.where(hit, (out.float() * (1 + 2 ** -8)).to(out.dtype), out)
 
 
-def drop_head(i, fn, q, k, v, **kw):
-    out = fn(q, k, v, **kw)                 # (B, T, H, D)
-    if i == 0:
-        out = out.clone()
-        out[:, :, 0] = 0
-    return out
+def attention_kinds(cfg) -> dict:
+    """The index, among one prefill's attention calls, of the first call
+    of each kind: the enc-dec's encoder runs all its layers first, then
+    each decoder layer calls self and then cross attention."""
+    if cfg.is_encdec:
+        E = cfg.enc_layers
+        return {"self": E, "encoder": 0, "cross": E + 1}
+    return {"self": 0}
+
+
+def drop_head_at(at: int):
+    """A hook zeroing head 0 of the `at`-th attention call's output."""
+    def hook(i, fn, q, k, v, **kw):
+        out = fn(q, k, v, **kw)             # (B, T, H, D)
+        if i == at:
+            out = out.clone()
+            out[:, :, 0] = 0
+        return out
+    return hook
+
+
+drop_head = drop_head_at(0)
 
 
 def half_window(i, fn, q, k, v, *, window=0, **kw):
@@ -83,7 +107,7 @@ def lost_carry(i, fn, a, b, h0=None, **kw):
     return torch.cat([head, tail], dim=-2)
 
 
-def prefill_logits(model, params, toks, *, impl="auto", attention=None,
+def prefill_logits(model, params, batch, *, impl="auto", attention=None,
                    scan=None):
     """Last-position logits (fp32) of one prefill; `attention` / `scan`
     wrap the layers' attention and scan calls as (layer index, the op,
@@ -104,7 +128,7 @@ def prefill_logits(model, params, toks, *, impl="auto", attention=None,
         linrec_ops.linrec = wrap("scan", lin, scan)
     try:
         with torch.no_grad():
-            logits, _ = model.apply(params, {"tokens": toks}, mode="prefill",
+            logits, _ = model.apply(params, batch, mode="prefill",
                                     impl=impl)
     finally:
         layers.select_attention, linrec_ops.linrec = select, lin
@@ -124,16 +148,17 @@ def main(argv=None):
     layers_kept = DEPTH_CUT.get(args.arch, cfg.num_layers)
     model = build_model(dataclasses.replace(cfg, num_layers=layers_kept))
     params = init_params_on_device(0, model.param_defs(), dev)
-    toks = torch.as_tensor(np.random.default_rng(1).integers(
-        0, model.cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32),
-        device=dev)
+    batch = make_batch(model.cfg, np.random.default_rng(1), BATCH, PROMPT,
+                       dev)
     family = model.cfg.family
     has_attention, has_scan = family != "ssm", family in ("ssm", "hybrid")
-    plain = prefill_logits(model, params, toks, impl="ref")
+    plain = prefill_logits(model, params, batch, impl="ref")
     runs = {"kernels": {}}
     if has_attention:
         runs["nudge"] = {"impl": "ref", "attention": nudge}
-        runs["drop_head"] = {"attention": drop_head}
+        for kind, at in attention_kinds(model.cfg).items():
+            name = "drop_head" if kind == "self" else f"drop_head_{kind}"
+            runs[name] = {"attention": drop_head_at(at)}
         runs["half_window"] = {"attention": half_window}
     else:
         runs["nudge"] = {"impl": "ref", "scan": nudge}
@@ -142,7 +167,7 @@ def main(argv=None):
     scale = float(plain.abs().max())
     gaps = {}
     for name, kw in runs.items():
-        got = prefill_logits(model, params, toks, **kw)
+        got = prefill_logits(model, params, batch, **kw)
         gaps[name] = float((got - plain).abs().max()) / scale
         agree = int((got.argmax(-1) == plain.argmax(-1)).sum())
         print(f"{args.arch} full width, {layers_kept} of {cfg.num_layers} "

@@ -1,18 +1,22 @@
 """Where the LM serving path's time goes on the card.
 
 One arch at full width (params drawn on the card), the serve entry point's
-work at its chip settings: one prefill of B x 2,048 tokens and decode steps
-at batch B.  A warm-up prefill and step first; then the prefill and 8
-decode steps are timed on the host clock (ending in a synchronise) and run
-again under `torch.profiler` for the device's busy time, its busy share of
-the wall and the kernel time by name, with the shares of the port's own
-kernels (flash_attention, linrec).
+work at its chip settings: one prefill of B x 2,048 positions (the batch
+of `serve.make_batch`: tokens, and phi-3-vision's patch embeddings or
+seamless-m4t's frames) and decode steps at batch B.  A warm-up prefill
+and step first; then the prefill and 8 decode steps are timed on the
+host clock (ending in a synchronise) and run again under
+`torch.profiler` for the device's busy time, its busy share of the wall
+and the kernel time by name, with the shares of the port's own kernels
+(flash_attention, linrec).
 
   PYTHONPATH=src python -m repro_torch.examples.profile_serve   # granite-20b
   PYTHONPATH=src python -m repro_torch.examples.profile_serve \
       --arch falcon-mamba-7b --batch 4
   PYTHONPATH=src python -m repro_torch.examples.profile_serve \
       --arch recurrentgemma-9b --batch 2
+  PYTHONPATH=src python -m repro_torch.examples.profile_serve \
+      --arch seamless-m4t-large-v2
   PYTHONPATH=src python -m repro_torch.examples.profile_serve --paged
 
 `--paged` (granite-20b) profiles PagedServeLoop at `serve.py --paged
@@ -35,6 +39,7 @@ from repro_torch.configs import get_config
 from repro_torch.examples.profile_quickstart import (device_profile,
                                                      layer_times, profiled,
                                                      range_split)
+from repro_torch.launch.serve import make_batch
 from repro_torch.launch.serve_loop import PagedServeLoop, Request
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import build_model
@@ -157,12 +162,11 @@ def main(argv=None):
     if args.paged:
         return profile_paged(model, params, B)
     prefill, decode = make_prefill_step(model), make_decode_step(model)
-    tokens = torch.as_tensor(np.random.default_rng(0).integers(
-        0, model.cfg.vocab_size, (B, T)).astype(np.int32), device=dev)
+    batch = make_batch(model.cfg, np.random.default_rng(0), B, T, dev)
     state = {}
 
     def run_prefill():
-        state["nxt"], state["cache"] = prefill(params, {"tokens": tokens})
+        state["nxt"], state["cache"] = prefill(params, batch)
 
     def run_decode():
         for i in range(STEPS):

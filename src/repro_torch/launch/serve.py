@@ -14,6 +14,10 @@ batching loop.  Port of `repro.launch.serve`.
       --batch 8 --prompt-len 512 --gen 32          # granite-20b, paged
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \\
       --arch qwen3-moe-235b-a22b                   # an MoE LM
+  PYTHONPATH=src python -m repro_torch.launch.serve --full \\
+      --arch phi-3-vision-4.2b --batch 8 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --full \\
+      --arch seamless-m4t-large-v2 --batch 8 --prompt-len 2048 --gen 32
 
 `main(argv)` builds the config from `--arch` / `--smoke` / `--full` and
 hands it to `serve_config(cfg, args)`, which serves any ModelConfig: a
@@ -21,11 +25,17 @@ caller with a config of its own (a full-width model cut in depth to fit
 one card, as chip_smoke.py serves the MoE archs) calls it with
 `parse_args([...])`.
 
+The batch (`make_batch`) is the reference's: random tokens, then for the
+VLM stub `frontend_len` random patch embeddings that replace the prompt's
+first positions, and for the enc-dec random frames of the prompt's
+length, all drawn from one numpy generator seeded with `--seed`.
+
 `--smoke` (the default) serves the arch's small config with the
 reference's Threefry-drawn params; `--full` serves the published width
 with params drawn on the device (`init_params_on_device`; not the JAX
 package's numbers).  Prefill attention runs on the flash_attention kernel
-(one launch per attention layer), the SSM and RG-LRU scans on the linrec
+(one launch per attention layer: an enc-dec's encoder, decoder self and
+cross attention each), the SSM and RG-LRU scans on the linrec
 kernel (one launch per recurrent layer in prefill and in each decode
 step); the script prints the prefill and decode times and rates, the
 launches of each kernel in the prefill and per decode step, and on a card
@@ -85,6 +95,27 @@ def _show(counts: dict, per: int = 1) -> str:
     return ", ".join(f"{name} {n / per:g}" for name, n in counts.items())
 
 
+def make_batch(cfg, rng: np.random.Generator, B: int, T: int,
+               device) -> dict:
+    """A prefill batch of B prompts of T positions, drawn from `rng` in the
+    reference's order: tokens, then the VLM stub's patch embeddings (B,
+    frontend_len, d_model), then the enc-dec's frames (B, T, d_model),
+    the float draws cast to bf16."""
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32),
+        device=device)}
+    if cfg.frontend == "vision_stub":
+        batch["patch_embeds"] = _bf16(
+            rng.normal(size=(B, cfg.frontend_len, cfg.d_model)), device)
+    if cfg.is_encdec:
+        batch["frames"] = _bf16(rng.normal(size=(B, T, cfg.d_model)), device)
+    return batch
+
+
+def _bf16(x: np.ndarray, device) -> torch.Tensor:
+    return torch.as_tensor(x).to(torch.bfloat16).to(device)
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-20b")
@@ -134,8 +165,12 @@ def serve_config(cfg, args: argparse.Namespace) -> dict:
         params = init_params_on_device(args.seed, model.param_defs(), device)
     _sync(device)
     t_init = time.perf_counter() - t0
-    cache_kind = CacheSpec.parse(cfg.cache_spec).name \
-        if model.supports_cache_spec else f"{cfg.family} state"
+    if model.supports_cache_spec:
+        cache_kind = CacheSpec.parse(cfg.cache_spec).name
+    elif cfg.is_encdec:
+        cache_kind = "self K/V and static cross K/V"
+    else:
+        cache_kind = f"{cfg.family} state"
     print(f"[serve] {cfg.name}: {model.n_params / 1e9:.2f} B params on "
           f"{device} (drawn in {t_init:.1f} s), cache {cache_kind}")
 
@@ -144,11 +179,8 @@ def serve_config(cfg, args: argparse.Namespace) -> dict:
 
     prefill = make_prefill_step(model)
     decode = make_decode_step(model)
-    rng = np.random.default_rng(args.seed)
     B, T = args.batch, args.prompt_len
-    batch = {"tokens": torch.as_tensor(
-        rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32),
-        device=device)}
+    batch = make_batch(cfg, np.random.default_rng(args.seed), B, T, device)
 
     before = _counts()
     t0 = time.perf_counter()

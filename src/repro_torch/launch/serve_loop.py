@@ -8,13 +8,16 @@ Two cache disciplines behind one Request/submit/tick API:
   decode step runs for ALL slots each tick with per-slot positions, and
   finished slots are recycled.  Greedy decode is token-identical to
   serving each request alone (tests/test_torch_serve.py).  It serves the
-  dense and MoE families and the SSM (falcon-mamba), whose per-slot conv windows
-  and states are written into the batched cache the same way; the hybrid
-  (recurrentgemma) is served on the fixed-batch path only, as the
-  reference's loop cannot serve its nested cache.
+  dense, MoE and VLM families (text prompts: the reference's loops pass
+  tokens only) and the SSM (falcon-mamba), whose per-slot conv windows
+  and states are written into the batched cache the same way.  The
+  hybrid (recurrentgemma) and the enc-dec (seamless-m4t) are served on
+  the fixed-batch path only, as the reference's loop cannot serve them:
+  it cannot write the hybrid's nested cache, and its prefill passes no
+  `frames`, which the enc-dec's encoder needs.
 
-* ``PagedServeLoop`` -- the BLOCK-TABLE PAGED cache (dense and MoE LMs
-  without a sliding window: a windowed layer raises ValueError): one KV
+* ``PagedServeLoop`` -- the BLOCK-TABLE PAGED cache (dense, MoE and VLM
+  LMs without a sliding window: a windowed layer raises ValueError): one KV
   block pool shared by all slots (core/paging.py: free list, refcounts,
   prefix sharing), per-slot block tables mapping position -> (block,
   offset), block-aligned chunked prefill whose tail pads to a power-of-two
@@ -95,6 +98,11 @@ class ServeLoop(_ServeBase):
                 f"{model.cfg.name}: the hybrid family's nested cache is "
                 "served on the fixed-batch path (launch/serve.py); the "
                 "reference's ServeLoop cannot serve it either")
+        if model.cfg.is_encdec:
+            raise NotImplementedError(
+                f"{model.cfg.name}: the enc-dec is served on the fixed-batch "
+                "path (launch/serve.py); the reference's ServeLoop cannot "
+                "serve it either (its prefill passes no frames)")
         super().__init__(model, params, max_batch=max_batch)
         if cache_spec and model.supports_cache_spec \
                 and cache_spec != model.cfg.cache_spec:

@@ -1,5 +1,5 @@
-"""Core neural layers of the dense and MoE LMs, port of
-`repro.models.layers`.
+"""Core neural layers of the LMs (dense, MoE, VLM, the enc-dec's blocks),
+port of `repro.models.layers`.
 
 Conventions (the reference's):
   * activations bf16, softmax/normalisation statistics fp32;
@@ -7,10 +7,13 @@ Conventions (the reference's):
   * every layer is a plain function f(params_subtree, x, ...) -> y;
   * decode uses a cache + per-row positions.
 
-Self-attention over a whole sequence (train, prefill: T == S, no query
+Attention over a whole sequence (train, prefill: T == S, no query
 offset) goes to the `flash_attention` kernel for every length
-(`select_attention`).  Queries at an offset into their keys (contiguous
-chunk_prefill) take the reference's plain routes, as plain torch:
+(`select_attention`): causal self attention, and non-causal for an
+encoder and for cross attention whose keys have the queries' length.
+Cross attention over keys of another length, and queries at an offset
+into their keys (contiguous chunk_prefill), take the reference's plain
+routes, as plain torch:
 `attention_full` up to 4,096 positions, the blockwise scans
 (`flash_attention_xla`, `flash_attention_xla_triangular`) above.  The
 paged cache (`paged_kv_write`, `paged_gather_kv`, `paged_chunk_attention`)
@@ -393,23 +396,42 @@ def attention_defs(cfg):
 
 
 def attention_apply(p, cfg, x, positions, *, mode="train", cache=None,
+                    kv_source=None, causal=True, window=None, is_cross=False,
                     impl="auto"):
-    """mode: train/prefill (full seq, causal), decode (T==1, uses cache)
-    or chunk_prefill (a chunk of a prompt at `positions`, into a paged
-    cache {kp, vp, bt} or a contiguous spec'd cache).  Returns (out,
-    new_cache).  Caches are written in place (models/cache.py)."""
-    window = cfg.window
+    """mode: train/prefill (full seq), decode (T==1, uses cache) or
+    chunk_prefill (a chunk of a prompt at `positions`, into a paged cache
+    {kp, vp, bt} or a contiguous spec'd cache).  Returns (out,
+    new_cache).  Caches are written in place (models/cache.py).
+
+    Cross attention (enc-dec): pass kv_source=enc_out in train/prefill,
+    or is_cross=True in decode, whose cache then holds the STATIC encoder
+    K/V built at prefill (never updated, no RoPE on q or k).  A prefill
+    with kv_source returns that cross cache {k, v, len}: the K/V its
+    attention used, which the reference computes a second time for the
+    cache.  `causal` applies to self attention only; `window` defaults to
+    the config's."""
+    is_cross = is_cross or kv_source is not None
+    window = cfg.window if window is None else window
     T = x.shape[1]
     q = torch.einsum("btd,dhk->bthk", x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
-    q = rope_apply(q, positions, cfg.rope_theta, cfg.rope_fraction)
-    kk = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    vv = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if not is_cross:
+        q = rope_apply(q, positions, cfg.rope_theta, cfg.rope_fraction)
+
+    if is_cross and mode == "decode":
+        # static encoder K/V cache: read-only attention over enc_len
+        out = decode_attention(q, cache["k"], cache["v"], cache["len"])
+        return torch.einsum("bthk,hkd->btd", out, p["wo"]), cache
+
+    xs = kv_source if kv_source is not None else x
+    kk = torch.einsum("bsd,dhk->bshk", xs, p["wk"])
+    vv = torch.einsum("bsd,dhk->bshk", xs, p["wv"])
     if "bk" in p:
         kk = kk + p["bk"]
         vv = vv + p["bv"]
-    kk = rope_apply(kk, positions, cfg.rope_theta, cfg.rope_fraction)
+    if not is_cross:
+        kk = rope_apply(kk, positions, cfg.rope_theta, cfg.rope_fraction)
 
     paged = cache is not None and "kp" in cache
     if paged and window:
@@ -465,10 +487,15 @@ def attention_apply(p, cfg, x, positions, *, mode="train", cache=None,
         else:
             out = decode_attention(q, k_read, v_read, cache_len + 1)
     else:
-        out = select_attention(q, kk, vv, window=window, impl=impl)
-        if mode == "prefill":
+        out = select_attention(q, kk, vv, causal=causal and kv_source is None,
+                               window=window, impl=impl)
+        if mode == "prefill" and kv_source is None:
             new_cache = kvcache.pack_prefill_cache(cfg, kk, vv, window=window,
                                                    impl=impl)
+        elif mode == "prefill":
+            new_cache = {"k": kk, "v": vv, "len": torch.full(
+                (kk.shape[0],), kk.shape[1], dtype=torch.int32,
+                device=kk.device)}
     y = torch.einsum("bthk,hkd->btd", out, p["wo"])
     return y, new_cache
 

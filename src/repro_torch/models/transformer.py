@@ -1,4 +1,4 @@
-"""Decoder-only LM (dense and MoE blocks), port of
+"""Decoder-only LM (dense and MoE blocks, the VLM stub), port of
 `repro.models.transformer`, 4 modes:
 
   train         -- full-sequence forward, returns (logits, aux: the MoE
@@ -19,7 +19,12 @@ the stack.  Caches are stacked (L, ...) too; decode and chunk_prefill
 write each layer's new K/V rows into them in place.  Every mode runs
 each layer's MoE block on the rows it is given (padding rows of a
 bucketed chunk and idle decode slots included, as in the reference).
-The VLM stub frontend is a later slice.
+
+The VLM stub frontend (`frontend="vision_stub"`): a batch may carry
+precomputed `patch_embeds` (B, P, d_model), which replace the first P
+token embeddings in any mode that is given them (decode carries none).
+A sequence shorter than P is refused, where the reference would lengthen
+it to P.
 """
 from __future__ import annotations
 
@@ -82,8 +87,16 @@ def _block_apply(p, cfg, x, positions, mode, cache, impl="auto"):
 
 
 def _embed_inputs(params, cfg, batch_inputs):
-    """Tokens only: the VLM stub's patch embeds come with the vlm family."""
-    return L.embed_apply(params["embed"], batch_inputs["tokens"])
+    """Tokens, with the stub modality embeddings occupying a prefix."""
+    x = L.embed_apply(params["embed"], batch_inputs["tokens"])
+    pe = batch_inputs.get("patch_embeds")
+    if cfg.frontend == "vision_stub" and pe is not None:
+        P = pe.shape[1]
+        if x.shape[1] < P:
+            raise ValueError(f"{cfg.name}: {x.shape[1]} positions cannot "
+                             f"hold the {P} patch embeddings of the prefix")
+        x = torch.cat([pe.to(x.dtype), x[:, P:]], dim=1)
+    return x
 
 
 def lm_apply(params, cfg, batch_inputs, *, mode="train", cache=None,

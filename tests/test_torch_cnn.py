@@ -105,8 +105,10 @@ def test_loss_gradients_match_reference(arch):
 
 
 def test_unported_family_raises():
-    cfg = dataclasses.replace(get_config("flight-cnn-mnist"), family="vlm")
-    with pytest.raises(NotImplementedError):
+    """Every family of the reference is ported; an unknown one raises."""
+    cfg = dataclasses.replace(get_config("flight-cnn-mnist"),
+                              family="no-such-family")
+    with pytest.raises(ValueError, match="unknown family"):
         build_model(cfg)
 
 

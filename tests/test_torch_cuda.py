@@ -482,7 +482,12 @@ FA_SHAPES = [  # (B, T, H, Hkv, D, window, causal)
     # 200 padded to 256, GQA groups of 1, 2 and 48
     (1, 4097, 4, 1, 128, 0, True), (2, 700, 4, 1, 256, 300, True),
     (1, 300, 4, 2, 200, 0, True), (2, 333, 4, 4, 128, 0, True),
-    (1, 520, 48, 1, 128, 0, True), (1, 200, 4, 2, 256, 0, False)]
+    (1, 520, 48, 1, 128, 0, True), (1, 200, 4, 2, 256, 0, False),
+    # phi-3-vision's D = 96 under MHA 32/32 (padded to 128 by the TMA box:
+    # an odd T, and its prefill length), seamless-m4t's non-causal D = 64
+    # (its encoder and cross attention)
+    (2, 77, 32, 32, 96, 0, True), (1, 2048, 32, 32, 96, 0, True),
+    (1, 300, 16, 16, 64, 0, False), (2, 2048, 16, 16, 64, 0, False)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),
@@ -532,7 +537,8 @@ def test_flash_attention_kernel_takes_strided_views(cuda):
 
 @pytest.mark.parametrize("D,route", [(64, "wgmma"), (128, "wgmma"),
                                      (256, "wgmma"), (200, "wgmma"),
-                                     (12, "mma"), (200, "fma")])
+                                     (96, "wgmma"), (12, "mma"),
+                                     (96, "mma"), (200, "fma")])
 def test_flash_attention_routes_on_strided_views(cuda, D, route):
     """bf16 q/k/v as views of one fused projection, read through their
     strides on the route their layout gets: TMA takes strides that are
@@ -617,6 +623,45 @@ def test_one_flash_launch_per_layer_per_prefill(cuda, arch):
         assert fa.flash_attention_cuda.launches == before + L
         model.apply(params, {"tokens": toks}, mode="train")
         assert fa.flash_attention_cuda.launches == before + 2 * L
+    torch.testing.assert_close(logits.float(), plain.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b",
+                                  "seamless-m4t-large-v2"])
+def test_vlm_and_enc_dec_prefill_on_card(cuda, arch):
+    """phi-3-vision (patch prefix) and seamless-m4t (encoder, decoder self
+    and cross attention) smoke models on the card: a prefill launches the
+    kernel once per attention layer, all on the wgmma route (the enc-dec's
+    cross attention too, with frames of the prompt's length; over frames
+    one longer it takes the plain route), a decode step never; the
+    logits agree with the plain version's run."""
+    from repro_torch import threefry
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models import build_model
+    model = build_model(get_smoke_config(arch))
+    cfg = model.cfg
+    params = model.init(threefry.key(0), cuda)
+    batch = make_batch(cfg, np.random.default_rng(0), 2, 37, cuda)
+    E, L = cfg.enc_layers, cfg.num_layers
+    n = E + 2 * L if cfg.is_encdec else L
+    before = fa.flash_attention_cuda.launches
+    on_wgmma = fa.flash_attention_cuda.routes["wgmma"]
+    with torch.no_grad():
+        logits, cache = model.apply(params, batch, mode="prefill")
+        assert fa.flash_attention_cuda.launches == before + n
+        assert fa.flash_attention_cuda.routes["wgmma"] == on_wgmma + n
+        plain, _ = model.apply(params, batch, mode="prefill", impl="ref")
+        model.apply(params, {"tokens": batch["tokens"][:, :1]},
+                    mode="decode", cache=cache)
+        assert fa.flash_attention_cuda.launches == before + n
+        if cfg.is_encdec:
+            longer = make_batch(cfg, np.random.default_rng(0), 2, 38, cuda)
+            model.apply(params, {**longer, "tokens": batch["tokens"]},
+                        mode="prefill")
+            assert fa.flash_attention_cuda.launches == before + 2 * n - L
     torch.testing.assert_close(logits.float(), plain.float(), rtol=2e-2,
                                atol=2e-2)
 

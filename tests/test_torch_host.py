@@ -71,8 +71,10 @@ def test_configs_equal(name):
 
 
 def test_unported_arch_is_unknown():
+    """Every arch of the reference is registered; an unknown name still
+    raises KeyError."""
     with pytest.raises(KeyError):
-        get_config("phi-3-vision-4.2b")
+        get_config("phi-4-vision-no-such-arch")
 
 
 def _fleets(n_workers=8, seed=4):

@@ -209,10 +209,15 @@ def test_init_params_on_device_rules():
 
 
 def test_unported_families_raise():
-    cfg = get_smoke_config("granite-20b")
-    for change in ({"family": "audio"}, {"family": "vlm"}):
-        with pytest.raises(NotImplementedError):
-            build_model(dataclasses.replace(cfg, **change))
+    """The last two families once refused now build: the VLM stub on the
+    decoder-only LM, the audio family on the encoder-decoder, with the
+    reference's parameter counts."""
+    from repro_torch.models import encdec, transformer
+    for arch, apply in (("phi-3-vision-4.2b", transformer.lm_apply),
+                        ("seamless-m4t-large-v2", encdec.encdec_apply)):
+        tm = build_model(get_smoke_config(arch))
+        assert tm._apply is apply
+        assert tm.n_params == jax_build(jax_smoke(arch)).n_params
 
 
 @pytest.mark.parametrize("arch", ["granite-20b", "chatglm3-6b"])

@@ -488,15 +488,15 @@ def test_logits_gap_hooks_reach_the_moe_layers(arch):
     from repro_torch.examples import logits_gap
     tm = build_model(get_smoke_config(arch))
     params = tm.init(threefry.key(0), "cpu")
-    toks = torch.as_tensor(_tokens(tm.cfg, 2, 96, seed=1))
-    plain = logits_gap.prefill_logits(tm, params, toks, impl="ref")
+    batch = {"tokens": torch.as_tensor(_tokens(tm.cfg, 2, 96, seed=1))}
+    plain = logits_gap.prefill_logits(tm, params, batch, impl="ref")
     gaps = {}
     for name, kw in (("kernels", {}),
                      ("nudge", {"impl": "ref",
                                 "attention": logits_gap.nudge}),
                      ("drop_head", {"attention": logits_gap.drop_head}),
                      ("half_window", {"attention": logits_gap.half_window})):
-        got = logits_gap.prefill_logits(tm, params, toks, **kw)
+        got = logits_gap.prefill_logits(tm, params, batch, **kw)
         gaps[name] = float((got - plain).abs().max() / plain.abs().max())
     assert gaps["kernels"] == 0.0, gaps
     assert gaps["drop_head"] > 0.1 and gaps["half_window"] > 0.1, gaps

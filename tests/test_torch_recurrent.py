@@ -417,10 +417,10 @@ def test_logits_gap_hooks_reach_the_layers():
                 "scan": logits_gap.lost_carry}})):
         tm = build_model(get_smoke_config(arch))
         params = tm.init(threefry.key(0), "cpu")
-        toks = torch.as_tensor(_tokens(tm.cfg, 2, 96, seed=1))
-        plain = logits_gap.prefill_logits(tm, params, toks, impl="ref")
+        batch = {"tokens": torch.as_tensor(_tokens(tm.cfg, 2, 96, seed=1))}
+        plain = logits_gap.prefill_logits(tm, params, batch, impl="ref")
         for name, kw in runs.items():
-            got = logits_gap.prefill_logits(tm, params, toks, **kw)
+            got = logits_gap.prefill_logits(tm, params, batch, **kw)
             gaps[name] = float((got - plain).abs().max() / plain.abs().max())
     assert gaps["kernels"] == 0.0
     assert 0.0 < gaps["nudge"] < 0.05

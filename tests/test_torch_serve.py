@@ -94,7 +94,12 @@ def test_cache_spec_override_rebuilds_model():
 
 @pytest.mark.parametrize("argv", [[], ["--cache", "head/int8", "--gen", "4"],
                                   ["--arch", "minitron-8b", "--batch", "2",
-                                   "--prompt-len", "9", "--gen", "3"]])
+                                   "--prompt-len", "9", "--gen", "3"],
+                                  ["--arch", "phi-3-vision-4.2b", "--batch",
+                                   "2", "--prompt-len", "13", "--gen", "3"],
+                                  ["--arch", "seamless-m4t-large-v2",
+                                   "--batch", "2", "--prompt-len", "9",
+                                   "--gen", "3"]])
 def test_serve_main_runs_on_cpu(argv, capsys):
     res = serve.main(["--device", "cpu", *argv])
     gen = int(argv[argv.index("--gen") + 1]) if "--gen" in argv else 32
@@ -122,7 +127,9 @@ NEW_MODULES = ["configs/granite_20b.py", "configs/chatglm3_6b.py",
                "launch/steps.py", "launch/loadgen.py", "core/paging.py",
                "models/model_factory.py", "examples/serve_load.py",
                "examples/serve_batched.py", "examples/profile_serve.py",
-               "examples/parity_gap.py",
+               "examples/parity_gap.py", "models/encdec.py",
+               "configs/phi_3_vision_4_2b.py",
+               "configs/seamless_m4t_large_v2.py",
                "kernels/flash_attention/kernel.py",
                "kernels/flash_attention/ops.py",
                "kernels/flash_attention/ref.py"]
