@@ -195,12 +195,41 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      prefill held layer by layer (encoder, self and cross attention) and
      in its logits; its ServeLoop must be refused, as the reference's
      cannot serve it;
-  24. print the kernel table as JSON (flash_attention's launches by
-     path), then the result line.
+  24. the training path, on every smoke arch: two adamw steps
+     (examples/train_gap.py, lr 1e-2, clip 1.0) on the card and on the
+     CPU from the same params and batch, for the ten assigned archs and
+     both flight CNNs, and with grad_accum = 2 and with remat on for
+     qwen1.5-4b and falcon-mamba-7b: metrics, moments and params held to
+     train_gap.TOL (the tolerances tests/test_torch_train.py holds the
+     CPU to against JAX), no flash_attention, linrec or quant8 launch;
+  25. qwen1.5-4b trained at full width, whole (3.95 B params, 40 layers,
+     grad_accum 4, remat on): `python -m repro_torch.launch.train --arch
+     qwen1.5-4b --full --islands 1 --steps 3 --batch 4 --seq 1024`
+     through its main, 3 finite steps, no kernel launch, each step's time,
+     tokens/s and share of the dense bf16 peak (6 N tokens) and the peak
+     memory printed; adamw's in-place update on the card against the
+     CPU's for the middle layer's slice of each stacked leaf (moments 1e-6
+     relative, params one bf16 ulp); the first step's loss against the
+     same batch's loss with no gradient (the serving route, flash) within
+     TRAIN_ROUTE_TOL, beside the train route's gap under a planted fault
+     (a query seeing one key ahead), a one-ulp nudge and a mask fault;
+  26. its federated loop at full width cut to 4 layers (1.10 B params an
+     island), 2 islands x 4 steps, 2 local steps, under --compress q8,
+     q8 through 2 fog cells with --overlap, and q8-topk with half the
+     islands Byzantine folded by trimmed mean: quant8 launches by hop (2 +
+     2, 4 + 4 and 4 + 4), each call bit-equal to the plain version, the
+     reference's tags, the islands agreeing after the last exchange; then
+     the q8 run killed after step 2 and resumed from its checkpoint, its
+     params and adamw state equal to the uninterrupted run's bit for bit
+     under torch.use_deterministic_algorithms;
+  27. print the kernel table as JSON (flash_attention's and linrec's
+     launches by path, the training paths' among them, 0; quant8's train
+     exchange launches), then the result line.
 
 Each model is freed before the next one is drawn (40.6 GB of weights
 for phases 11-12 and again for 13-15, then 14.6, 20.9, 40.9, 41.7, 7.6
-and 3.3 GB).
+and 3.3 GB; phase 25's 7.9 GB of bf16 weights, 31.6 GB of adamw moments
+and 15.8 GB of fp32 gradient accumulator).
 """
 from __future__ import annotations
 
@@ -402,6 +431,50 @@ FA_FAMILY = {VLM_ARCH: (FAMILY_BATCH, LM_PROMPT, 32, 32, 96, 0, True),
                                        0, False),
              f"{AUDIO_ARCH} decoder": (FAMILY_BATCH, LM_PROMPT, 16, 16, 64,
                                        0, True)}
+# the training path (phases 24-26).  Phase 24: every smoke arch's train
+# step (examples/train_gap.py: 2 steps of adamw, lr 1e-2, clip 1.0, on
+# its B x T batch) on the card against the same step on the CPU, held to
+# train_gap.TOL as tests/test_torch_train.py holds the CPU against JAX;
+# then grad_accum = 2 and remat on for a dense and a recurrent arch
+TRAIN_EXTRA = ({"grad_accum": 2}, {"remat": True})
+TRAIN_EXTRA_ARCHS = ("qwen1.5-4b", "falcon-mamba-7b")
+BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
+# phase 25: qwen1.5-4b at full width, whole (40 layers, grad_accum 4,
+# remat on): 3 steps through launch/train.py's main
+TRAIN_ARCH = "qwen1.5-4b"
+TRAIN_FULL = ["--arch", TRAIN_ARCH, "--full", "--islands", "1", "--steps",
+              "3", "--batch", "4", "--seq", "1024"]
+# its first step's train-route loss (attention_full, P in bf16) against
+# the same batch's loss with no gradient (the serving route: the
+# flash_attention kernel, P in fp32), relative; near the geometric mean of
+# the card's reading of that gap, 2.14e-5, and a fault planted in the
+# train route (each query sees one key ahead), 1.82e-3.  A one-ulp nudge
+# of every param reads 2.57e-4 and a loss mask one position longer
+# 1.93e-5: at 4 x 1,024 positions one position is lost in the mean
+# (PERF.md section 6; phase 25 prints all four)
+TRAIN_ROUTE_TOL = 2e-4
+# phase 26: the federated loop at full width cut to 4 of its 40 layers,
+# 2 islands; per case its flags, quant8 launches (quantise, dequantise)
+# over the run's 2 exchanges (one grouped launch a hop; the robust fold's
+# wire is one an island) and the reference's tag sequence
+TRAIN_FL_LAYERS = 4
+TRAIN_FL = ["--arch", TRAIN_ARCH, "--full", "--islands", "2",
+            "--local-steps", "2", "--steps", "4", "--batch", "4",
+            "--seq", "1024"]
+TRAIN_FL_CASES = {
+    "q8": (["--compress", "q8"], (2, 2),
+           ["local", "exchange+q8", "local", "exchange+q8"]),
+    "q8 fog x2 overlap": (["--compress", "q8", "--fog-cells", "2",
+                           "--overlap"], (4, 4),
+                          ["local", "fog-exchange x2+q8+overlap",
+                           "local+merge", "fog-exchange x2+q8"]),
+    "q8-topk byzantine trimmed_mean": (
+        ["--compress", "q8-topk", "--byzantine", "0.5", "--robust-agg",
+         "trimmed_mean"], (4, 4),
+        ["local", "robust-exchange:trimmed_mean+q8-topk", "local",
+         "robust-exchange:trimmed_mean+q8-topk"])}
+# islands after an exchange (tests/test_system.py's consensus check)
+ISLAND_AGREE_TOL = 1e-5
 
 
 def check(ok: bool, msg: str):
@@ -1481,6 +1554,43 @@ def res_device(params):
     return leaves(params)[0].device
 
 
+@contextlib.contextmanager
+def held_quant8(torch):
+    """Every grouped quant8 call inside the block is also run through the
+    plain version on the same inputs; yields {"quantize": [...],
+    "dequantize": [...]}, one (rows, max |diff|) a leaf, the differences
+    left on the card until the caller reads them."""
+    from repro_torch.kernels.quant8 import ops as q8ops
+    held = {"quantize": [], "dequantize": []}
+    quantize, dequantize = (q8ops.quantize_rows_grouped,
+                            q8ops.dequantize_rows_grouped)
+
+    def checked_quantize(xs, *, impl="auto"):
+        out = quantize(xs, impl=impl)
+        for (q, sc), (qr, sr) in zip(out, quantize(xs, impl="ref")):
+            held["quantize"].append((q.shape[0], torch.maximum(
+                (q.int() - qr.int()).abs().max().float(),
+                (sc - sr).abs().max())))
+        return out
+
+    def checked_dequantize(qs, ss, *, out_dtype=torch.float32,
+                           impl="auto"):
+        out = dequantize(qs, ss, out_dtype=out_dtype, impl=impl)
+        want = dequantize(qs, ss, out_dtype=out_dtype, impl="ref")
+        for o, w in zip(out, want):
+            held["dequantize"].append(
+                (o.shape[0], (o.float() - w.float()).abs().max()))
+        return out
+
+    q8ops.quantize_rows_grouped = checked_quantize
+    q8ops.dequantize_rows_grouped = checked_dequantize
+    try:
+        yield held
+    finally:
+        q8ops.quantize_rows_grouped = quantize
+        q8ops.dequantize_rows_grouped = dequantize
+
+
 def chunked_int8(torch, model, params, card: str) -> dict:
     """A CHUNK_BATCH x CHUNK_PROMPT batch through make_chunk_prefill_step
     in chunks of CHUNK_LEN into a head/int8 cache of CHUNK_CACHE
@@ -1492,7 +1602,6 @@ def chunked_int8(torch, model, params, card: str) -> dict:
     import dataclasses
     from repro_torch.examples import serve_load
     from repro_torch.kernels.quant8 import kernel as q8
-    from repro_torch.kernels.quant8 import ops as q8ops
     from repro_torch.launch.steps import (make_chunk_prefill_step,
                                           make_decode_step)
     from repro_torch.models import build_model
@@ -1518,37 +1627,12 @@ def chunked_int8(torch, model, params, card: str) -> dict:
             out.append(nxt.cpu())
         return torch.stack(out, 1).tolist(), rows
 
-    # every grouped call of the path beside its plain version; the
-    # differences stay on the card until the run ends
-    held = {"quantize": [], "dequantize": []}    # (rows, max |diff|)
-    quantize, dequantize = (q8ops.quantize_rows_grouped,
-                            q8ops.dequantize_rows_grouped)
-
-    def checked_quantize(xs, *, impl="auto"):
-        out = quantize(xs, impl=impl)
-        for (q, sc), (qr, sr) in zip(out, quantize(xs, impl="ref")):
-            held["quantize"].append((q.shape[0], torch.maximum(
-                (q.int() - qr.int()).abs().max().float(),
-                (sc - sr).abs().max())))
-        return out
-
-    def checked_dequantize(qs, ss, *, out_dtype=torch.float32,
-                           impl="auto"):
-        out = dequantize(qs, ss, out_dtype=out_dtype, impl=impl)
-        want = dequantize(qs, ss, out_dtype=out_dtype, impl="ref")
-        for o, w in zip(out, want):
-            held["dequantize"].append(
-                (o.shape[0], (o.float() - w.float()).abs().max()))
-        return out
-
     cache = tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
                                            device=dev),
                      spec.cache_defs(B, CHUNK_CACHE))
     q8.quantize_grouped_cuda.launches = 0
     q8.dequantize_grouped_cuda.launches = 0
-    q8ops.quantize_rows_grouped = checked_quantize
-    q8ops.dequantize_rows_grouped = checked_dequantize
-    try:
+    with held_quant8(torch) as held:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for pos in range(0, T, C):
@@ -1563,9 +1647,6 @@ def chunked_int8(torch, model, params, card: str) -> dict:
         got, got_rows = steps(nxt, cache)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        q8ops.quantize_rows_grouped = quantize
-        q8ops.dequantize_rows_grouped = dequantize
     launches = {"quantize": q8.quantize_grouped_cuda.launches,
                 "dequantize": q8.dequantize_grouped_cuda.launches}
     want_n = L * (T // C + CHUNK_STEPS)
@@ -1931,6 +2012,366 @@ def scenarios_path(torch, card: str) -> int:
     return launches
 
 
+def train_kernel_counts() -> dict:
+    """Launches of every kernel a train step must not reach and of the
+    exchange's quant8, read now."""
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.linrec.kernel import linrec_cuda
+    from repro_torch.kernels.quant8 import kernel as q8
+    return {"flash_attention": flash_attention_cuda.launches,
+            "linrec": linrec_cuda.launches,
+            "quantize": q8.quantize_grouped_cuda.launches,
+            "dequantize": q8.dequantize_grouped_cuda.launches}
+
+
+def zero_train_counts():
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.linrec.kernel import linrec_cuda
+    from repro_torch.kernels.quant8 import kernel as q8
+    for fn in (flash_attention_cuda, linrec_cuda, q8.quantize_grouped_cuda,
+               q8.dequantize_grouped_cuda):
+        fn.launches = 0
+
+
+def train_smoke(torch) -> dict:
+    """Phase 24: every smoke arch's train step on the card against the
+    same step on the CPU (train_gap.run_steps: the same params, drawn from
+    the Threefry key of seed 0, and batch), held to train_gap.TOL; counted
+    from zero: no flash_attention, linrec or quant8 launch."""
+    import dataclasses
+    from repro_torch import threefry
+    from repro_torch.configs import get_smoke_config, list_archs
+    from repro_torch.examples import train_gap
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    cases = [(arch, {}) for arch in list_archs()] + [
+        (arch, kw) for kw in TRAIN_EXTRA for arch in TRAIN_EXTRA_ARCHS]
+    worst, launches = {}, {}
+    t0 = time.perf_counter()
+    zero_train_counts()
+    for arch, kw in cases:
+        cfg = dataclasses.replace(get_smoke_config(arch), **kw)
+        model = build_model(cfg)
+        params = model.init(threefry.key(0), "cpu")
+        batch = train_gap.train_batch(model, train_gap.BATCH * cfg.grad_accum,
+                                      train_gap.SEQ)
+        cpu = train_gap.run_steps(model, params,
+                                  train_gap.to_torch(batch, model, "cpu"))
+        card = train_gap.run_steps(
+            model, tree_map(lambda t: t.cuda(), params),
+            train_gap.to_torch(batch, model, "cuda"))
+        torch.cuda.synchronize()
+        card = (tree_map(lambda t: t.cpu(), card[0]),
+                tree_map(lambda t: t.cpu(), card[1]), card[2])
+        g = train_gap.gaps(params, cpu, card)
+        bad = train_gap.violations(cfg, g)
+        label = arch + "".join(f" {k}={v}" for k, v in kw.items())
+        check(not bad, f"train step {label}, card vs CPU: {bad} outside "
+              f"train_gap.TOL: {g}")
+        for k, v in g.items():
+            worst[k] = max(worst.get(k, v), v) if k != "slope_min" \
+                else min(worst.get(k, v), v)
+        print(f"train step {label} (2 steps, card vs CPU): "
+              + ", ".join(f"{k} {v:.3g}" for k, v in g.items()), flush=True)
+    launches = train_kernel_counts()
+    check(launches == dict.fromkeys(launches, 0),
+          f"smoke train steps launched {launches}; none expected (the "
+          "gradient routes are plain)")
+    print(f"phase 24: {len(cases)} smoke train runs on the card, worst "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f", launches {launches}, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"cases": len(cases), "worst": worst, "launches": launches}
+
+
+def step_loss(torch, model, params, batch, accum: int, *,
+              grad: bool) -> float:
+    """The train step's loss (the mean of `accum` microbatch losses) on
+    the serving route (no gradient: flash_attention) or, with `grad`, on
+    the train route (every param a leaf that requires grad, as the train
+    step makes them, so attention takes attention_full; no backward)."""
+    from repro_torch.launch import steps
+    total = torch.zeros((), device="cuda")
+    tree = steps.grad_view(params)[0] if grad else params
+    with torch.set_grad_enabled(grad):
+        for j in range(accum):
+            mb = {k: v.reshape((accum, -1) + v.shape[1:])[j]
+                  for k, v in batch.items()}
+            total = total + steps.lm_loss(model, tree, mb)[0].detach() \
+                / accum
+    return float(total)
+
+
+@contextlib.contextmanager
+def future_leak():
+    """A planted fault in the train route: every causal attention_full
+    call lets each query see one key past its own position."""
+    from repro_torch.models import layers
+    orig = layers.attention_full
+
+    def leaky(q, k, v, *, causal=True, window=0, q_offset=0):
+        return orig(q, k, v, causal=causal, window=window,
+                    q_offset=q_offset + 1 if causal else q_offset)
+
+    layers.attention_full = leaky
+    try:
+        yield
+    finally:
+        layers.attention_full = orig
+
+
+def adamw_slice_check(torch, params, opt_state, lr_fn) -> dict:
+    """One layer slice of each stacked leaf (the middle layer) with its
+    trained moments and a drawn gradient, stepped by the port's in-place
+    adamw on the card and on the CPU: moments within 1e-6 of the CPU's,
+    relative to the leaf's scale, params within one bf16 ulp."""
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+    stack = params["layers"]
+    mid = leaves(stack)[0].shape[0] // 2
+    g = torch.Generator(device="cuda").manual_seed(5)
+    trees = (stack, opt_state["mu"]["layers"], opt_state["nu"]["layers"])
+    sides = {dev: ([[t[mid].to(dev).clone() for t in ls]
+                    for ls in zip(*map(leaves, trees))],
+                   {"count": opt_state["count"].to(dev).clone()})
+             for dev in ("cuda", "cpu")}
+    grads = [torch.randn(p.shape, generator=g, device="cuda").mul_(1e-3)
+             .to(p.dtype) for p, _, _ in sides["cuda"][0]]
+    for dev, (pieces, state) in sides.items():
+        adamw(lr_fn).step_([(p, gr.to(dev), m, v) for (p, m, v), gr
+                            in zip(pieces, grads)], state,
+                           grad_scale=torch.tensor(0.5, device=dev))
+    moment_err, param_ulps, equal, n = 0.0, 0.0, 0, 0
+    for (pc, mc, vc), (pp, mp, vp) in zip(sides["cuda"][0], sides["cpu"][0]):
+        for a, b in ((mc, mp), (vc, vp)):
+            moment_err = max(moment_err, float((a.cpu() - b).abs().max())
+                             / max(float(b.abs().max()), 1e-30))
+        a, b = pc.cpu().float(), pp.float()
+        ulp = b.abs() * 2.0 ** -7 + 1e-30
+        param_ulps = max(param_ulps, float(((a - b).abs() / ulp).max()))
+        equal += int((a == b).sum())
+        n += b.numel()
+    check(moment_err <= 1e-6 and param_ulps <= 1.0,
+          f"adamw on the card vs the CPU: moments {moment_err}, params "
+          f"{param_ulps} bf16 ulps")
+    return {"moment_rel": moment_err, "param_ulps": param_ulps,
+            "param_equal_share": equal / n, "layer": mid,
+            "leaves": len(grads)}
+
+
+def train_full(torch, card: str) -> dict:
+    """Phase 25: qwen1.5-4b at full width, whole, through launch/train.py's
+    main (3 steps, grad_accum 4, remat), counted from zero; the step time,
+    tokens/s, share of the dense bf16 peak (6 N tokens), peak memory; the
+    adamw update against the CPU's; the first step's train-route loss
+    against the serving route's on the same batch, beside the train
+    route's under a planted fault (a query seeing one key ahead), a
+    one-ulp nudge of every param and a loss mask one position longer."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import (batch_token_stream,
+                                            make_token_stream)
+    from repro_torch.examples import train_gap
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.models.param import init_params_on_device
+    from repro_torch.optim import cosine_warmup
+    args = train.parse_args(TRAIN_FULL)
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    n_params = model.n_params
+    tokens = args.batch * args.seq
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_counts()
+    t0 = time.perf_counter()
+    res = train.main(TRAIN_FULL)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = train_kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(launches == dict.fromkeys(launches, 0),
+          f"train.py --full {TRAIN_ARCH}: launches {launches}, none expected")
+    check(len(res["losses"]) == args.steps
+          and all(np.isfinite(res["losses"])),
+          f"train.py --full {TRAIN_ARCH}: losses {res['losses']}")
+    check(peak < 80, f"train.py --full: peak {peak:.2f} GB")
+    rows = []
+    for s, (ms, loss) in enumerate(zip(res["step_ms"], res["losses"])):
+        rate = tokens / (ms / 1e3)
+        share = 6 * n_params * rate / BF16_FLOPS_PER_S
+        rows.append({"step": s + 1, "ms": ms, "tokens_per_s": rate,
+                     "peak_share": share, "loss": loss})
+        print(f"train {TRAIN_ARCH} full width ({n_params:,} params, "
+              f"grad_accum {cfg.grad_accum}, remat {cfg.remat}) step {s + 1}:"
+              f" {ms:.1f} ms, {rate:,.0f} tokens/s, {share:.4f} of the "
+              f"dense bf16 peak (6 N tokens), loss {loss:.4f} ({card})",
+              flush=True)
+    adam = adamw_slice_check(torch, res["params"], res["opt_state"],
+                             cosine_warmup(args.lr, 10, args.steps))
+    print(f"adamw on the card vs the CPU port, layer {adam['layer']} of "
+          f"{adam['leaves']} stacked leaves: moments max rel "
+          f"{adam['moment_rel']:.3g}, params max {adam['param_ulps']:.3g} "
+          f"bf16 ulps ({adam['param_equal_share']:.6f} equal)", flush=True)
+    train_loss = res["losses"][0]
+    del res
+    torch.cuda.empty_cache()
+    # the first batch again, the initial params drawn again from the seed
+    stream = make_token_stream(cfg.vocab_size, 400_000, seed=args.seed)
+    x, y = batch_token_stream(stream, args.batch, args.seq, 0)
+    batch = {"tokens": torch.as_tensor(x, device="cuda"),
+             "labels": torch.as_tensor(y, device="cuda")}
+    params = init_params_on_device(args.seed, model.param_defs(), "cuda")
+    before = train_kernel_counts()["flash_attention"]
+    served = step_loss(torch, model, params, batch, cfg.grad_accum,
+                       grad=False)
+    n_flash = train_kernel_counts()["flash_attention"] - before
+    check(n_flash == cfg.grad_accum * cfg.num_layers,
+          f"no-grad loss: {n_flash} flash launches")
+    readings = {"train_route": train_loss}
+    with future_leak():
+        readings["future_leak"] = step_loss(torch, model, params, batch,
+                                            cfg.grad_accum, grad=True)
+    with train_gap.mask_shift():
+        readings["mask_shift"] = step_loss(torch, model, params, batch,
+                                           cfg.grad_accum, grad=True)
+    train_gap.nudge_ulp_(params)
+    readings["nudge"] = step_loss(torch, model, params, batch,
+                                  cfg.grad_accum, grad=True)
+    check(train_kernel_counts()["flash_attention"] == before + n_flash,
+          "a train-route loss launched flash_attention")
+    del params
+    torch.cuda.empty_cache()
+    rel = {k: abs(v - served) / abs(served) for k, v in readings.items()}
+    print(f"{TRAIN_ARCH} first step's loss: train route {train_loss:.6f}, "
+          f"serving route (flash, no grad) {served:.6f}; relative gaps "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+          + f" (tolerance {TRAIN_ROUTE_TOL}; {card})", flush=True)
+    check(rel["train_route"] <= TRAIN_ROUTE_TOL,
+          f"train-route loss {train_loss} vs serving route {served}: "
+          f"{rel['train_route']} > {TRAIN_ROUTE_TOL}")
+    print(f"phase 25: {wall:.1f} s wall for train.py, peak {peak:.2f} GB "
+          f"({card})", flush=True)
+    return {"steps": rows, "peak_gb": peak, "wall_s": wall, "adamw": adam,
+            "loss_gaps": rel, "launches": launches}
+
+
+def digest(torch, tree) -> list:
+    """Two int64 checksums of each leaf's bits (their sum, and their sum
+    weighted by position mod 1009): equal digests hold two trees equal bit
+    for bit without a second copy of either."""
+    from repro_torch.tree import leaves
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+            torch.int32: torch.int32}
+    out = []
+    for t in leaves(tree):
+        b = t.contiguous().view(-1).view(bits[t.dtype]).long()
+        w = torch.arange(b.numel(), device=b.device) % 1009 + 1
+        out.append((int(b.sum()), int((b * w).sum())))
+    return out
+
+
+def train_fl(torch, card: str) -> dict:
+    """Phase 26: launch/train.py's federated loop at full width cut to
+    TRAIN_FL_LAYERS layers, 2 islands, under each TRAIN_FL_CASES config,
+    counted from zero: quant8 launches by hop, each call held bit for bit
+    against the plain version, the tags, the islands' agreement after the
+    last exchange; then the q8 run killed after step 2 and resumed from
+    its checkpoint, equal to the uninterrupted run bit for bit under
+    torch.use_deterministic_algorithms."""
+    import dataclasses
+    import os
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_FL_LAYERS)
+    n_params = build_model(cfg).n_params
+    # cuBLAS refuses deterministic mode without a fixed workspace setting
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    out, q8_total = {}, {"quantize": 0, "dequantize": 0}
+    try:
+        whole = None
+        for name, (extra, want_q8, want_tags) in TRAIN_FL_CASES.items():
+            torch.cuda.reset_peak_memory_stats()
+            zero_train_counts()
+            t0 = time.perf_counter()
+            with held_quant8(torch) as held:
+                res = train.main(TRAIN_FL + extra, cfg=cfg)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = train_kernel_counts()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            check((n["quantize"], n["dequantize"]) == want_q8
+                  and n["flash_attention"] == n["linrec"] == 0,
+                  f"train loop {name}: launches {n}, quant8 {want_q8} "
+                  "expected and no flash / linrec")
+            errs = {k: float(torch.stack([e for _, e in v]).max())
+                    for k, v in held.items()}
+            check(all(e == 0.0 for e in errs.values()),
+                  f"train loop {name}: quant8 vs plain {errs}")
+            check(res["tags"] == want_tags,
+                  f"train loop {name}: tags {res['tags']}, the reference's "
+                  f"{want_tags}")
+            check(all(np.isfinite(res["losses"])),
+                  f"train loop {name}: losses {res['losses']}")
+            agree = max(float((l[0].float() - l[1].float()).abs().max())
+                        for l in leaves(res["params"]))
+            check(agree <= ISLAND_AGREE_TOL,
+                  f"train loop {name}: islands differ by {agree}")
+            for k in q8_total:
+                q8_total[k] += n[k]
+            if name == "q8":
+                whole = digest(torch, {"p": res["params"],
+                                       "s": res["opt_state"]})
+            out[name] = {"losses": res["losses"], "step_ms": res["step_ms"],
+                         "peak_gb": peak, "quant8": n, "held_calls":
+                         {k: len(v) for k, v in held.items()},
+                         "island_gap": agree, "wall_s": wall}
+            print(f"train loop {name}, {TRAIN_ARCH} full width cut to "
+                  f"{TRAIN_FL_LAYERS} layers ({n_params:,} params an "
+                  f"island), 2 islands: losses "
+                  f"{[round(x, 4) for x in res['losses']]}, step ms "
+                  f"{[round(x, 1) for x in res['step_ms']]}, tags "
+                  f"{res['tags']}, quant8 {want_q8} (each of "
+                  f"{sum(len(v) for v in held.values())} leaves bit-equal to "
+                  f"the plain version), islands agree to {agree}, peak "
+                  f"{peak:.2f} GB, {wall:.1f} s ({card})", flush=True)
+            del res
+            torch.cuda.empty_cache()
+        # killed after step 2 (its checkpoint), then resumed to step 4
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            ck = ["--compress", "q8", "--ckpt-dir", d, "--ckpt-every", "2"]
+            at = TRAIN_FL.index("--steps") + 1
+            train.main(TRAIN_FL[:at] + ["2"] + TRAIN_FL[at + 1:] + ck,
+                       cfg=cfg)
+            torch.cuda.empty_cache()
+            # no second checkpoint: one is 26.3 GB (bf16 params kept as
+            # fp32, adamw's moments), and a run's disk writes add up
+            res = train.main(TRAIN_FL + ["--compress", "q8", "--ckpt-dir", d,
+                                         "--ckpt-every", "100", "--resume"],
+                             cfg=cfg)
+            resumed = digest(torch, {"p": res["params"],
+                                     "s": res["opt_state"]})
+            check(res["start"] == 2, f"resumed at step {res['start']}")
+        del res
+        torch.cuda.empty_cache()
+        same = sum(a == b for a, b in zip(whole, resumed))
+        check(same == len(whole), f"killed + resumed vs uninterrupted q8 "
+              f"run: {len(whole) - same} of {len(whole)} leaves differ")
+        print(f"train loop q8 killed after step 2 and resumed from its "
+              f"checkpoint: params and adamw state equal to the "
+              f"uninterrupted run's bit for bit ({len(whole)} leaves, "
+              f"deterministic algorithms), "
+              f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return {"cases": out, "quant8": q8_total, "n_params": n_params}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2228,7 +2669,14 @@ def main() -> int:
     fam = {arch: family_serve(torch, arch, card)
            for arch in (VLM_ARCH, AUDIO_ARCH)}
 
-    # 24. results
+    # 24. every smoke arch's train step, card vs CPU, counted from zero;
+    # 25. qwen1.5-4b trained at full width, whole, counted from zero;
+    # 26. its federated loop cut to 4 layers, quant8 counted from zero
+    tr_smoke = train_smoke(torch)
+    tr_full = train_full(torch, card)
+    tr_fl = train_fl(torch, card)
+
+    # 27. results
     # fed_agg on its main path: one grouped launch over the async merge's
     # tree; library_ms is one einsum over the same elements as a (2, N)
     # stack (the sweep's (2, 20,490) row), which no tree call has
@@ -2259,10 +2707,13 @@ def main() -> int:
             "name": f"quant8_{name}", "route": "cuda",
             "source": "src/repro_torch/kernels/quant8/csrc/quant8.cu",
             "replaces": f"src/repro/kernels/quant8/kernel.py:{line}",
-            # the exchange path's and the chunked int8 prefill's
-            "launches": q8_launches[name] + chunk_q8[name],
+            # the exchange path's, the chunked int8 prefill's and the
+            # train loop's exchanges
+            "launches": q8_launches[name] + chunk_q8[name]
+            + tr_fl["quant8"][name],
             "launches_by_path": {"exchange": q8_launches[name],
-                                 "chunked_int8_prefill": chunk_q8[name]},
+                                 "chunked_int8_prefill": chunk_q8[name],
+                                 "train_exchange": tr_fl["quant8"][name]},
             # the exchange's group and every call of the chunked prefill
             "max_abs_err": max(t["max_abs_err"],
                                chunk_res["max_abs_err"][name]),
@@ -2282,6 +2733,14 @@ def main() -> int:
         flash_paths[f"{arch} serve"] = r["serve"]["flash_attention"]
         if "loop" in r:
             flash_paths[f"{arch} ServeLoop"] = r["loop"]["flash_attention"]
+    # training takes the plain routes: no launch in phases 24-26
+    train_paths = {"train smoke steps": tr_smoke["launches"],
+                   f"{TRAIN_ARCH} train": tr_full["launches"],
+                   f"{TRAIN_ARCH} train loop": {
+                       k: sum(c["quant8"][k] for c in tr_fl["cases"].values())
+                       for k in ("flash_attention", "linrec")}}
+    for path, n in train_paths.items():
+        flash_paths[path] = n["flash_attention"]
     table.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2305,6 +2764,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/linrec/kernel.py:66",
         "launches": sum(r["linrec"] for r in (
             ssm_launches, ssm_loop_launches, hybrid_launches)),
+        "launches_by_path": {
+            f"{SSM_ARCH} serve": ssm_launches["linrec"],
+            f"{SSM_ARCH} ServeLoop": ssm_loop_launches["linrec"],
+            f"{HYBRID_ARCH} serve": hybrid_launches["linrec"],
+            **{path: n["linrec"] for path, n in train_paths.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in lr_main.values()),
         "ms": lr["ms"], "plain_ms": lr["plain_ms"],
         "bound_ms": lr["bound_ms"], "bound_by": lr["bound_by"],
@@ -2325,6 +2789,16 @@ def main() -> int:
                        f"{r['peak_gb']:.2f} GB" for arch, r in moe.items()]
                       + [f"{arch} {r['peak_gb']:.2f} GB"
                          for arch, r in fam.items()]), flush=True)
+    best = min(tr_full["steps"], key=lambda r: r["ms"])
+    print(f"training: {TRAIN_ARCH} full width, whole, best step "
+          f"{best['ms']:.1f} ms, {best['tokens_per_s']:,.0f} tokens/s, "
+          f"{best['peak_share']:.4f} of the dense bf16 peak, peak memory "
+          f"{tr_full['peak_gb']:.2f} GB; its loop cut to {TRAIN_FL_LAYERS} "
+          f"layers x 2 islands, peak "
+          + ", ".join(f"{k} {c['peak_gb']:.2f} GB"
+                      for k, c in tr_fl["cases"].items())
+          + f"; quant8 in the train loop {tr_fl['quant8']} ({card})",
+          flush=True)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

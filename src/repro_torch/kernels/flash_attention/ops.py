@@ -2,9 +2,12 @@
 
 `impl="auto"` launches the CUDA kernel for CUDA tensors, on the tensors as
 they lie (no transposed copies), and runs the plain version (ref.py) for
-CPU tensors; `impl="ref"` forces the plain version.  Forward only: the
-backward kernel belongs to the training slice, so a gradient request
-raises.
+CPU tensors; `impl="ref"` forces the plain version.  Forward only, as
+the reference's Pallas kernel is: the reference differentiates only its
+plain attention routes, and training in the port takes those too
+(`models.layers.select_attention` routes a call that carries a gradient
+before it reaches this op).  A gradient request here raises; a backward
+kernel is optional later work.
 """
 from __future__ import annotations
 
@@ -23,7 +26,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"impl {impl!r}; have {IMPLS}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
-            "flash_attention has no backward yet (the training slice)")
+            "flash_attention has no backward kernel; a call that carries a "
+            "gradient takes the plain attention routes "
+            "(models.layers.select_attention)")
     if impl == "ref" or q.device.type == "cpu":
         out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window)

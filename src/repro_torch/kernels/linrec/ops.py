@@ -7,8 +7,12 @@ ops.py); with an h0 it is the models' `_chunked_linear_scan`
 through it.  Leading dims are flattened into one batch axis, as the
 reference's wrapper does.  `impl="auto"` launches the CUDA kernel for
 CUDA tensors and runs the plain version (ref.py) for CPU tensors;
-`impl="ref"` forces the plain version.  Forward only: the backward kernel
-belongs to the training slice, so a gradient request raises.
+`impl="ref"` forces the plain version.  Forward only, as the reference's
+Pallas kernel is: the reference differentiates only its chunked
+associative scan, and training in the port takes that scan too
+(`models.ssm._chunked_linear_scan`, chosen by `models.ssm._scan` before a
+call that carries a gradient reaches this op).  A gradient request here
+raises; a backward kernel is optional later work.
 """
 from __future__ import annotations
 
@@ -29,7 +33,9 @@ def linrec(a, b, h0=None, *, impl: str = "auto"):
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (a, b, h0)):
         raise NotImplementedError(
-            "linrec has no backward yet (the training slice)")
+            "linrec has no backward kernel; a call that carries a "
+            "gradient takes the chunked scan "
+            "(models.ssm._chunked_linear_scan)")
     shape = a.shape
     T, D = shape[-2], shape[-1]
     B = math.prod(shape[:-2])

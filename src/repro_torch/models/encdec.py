@@ -15,7 +15,9 @@ prefill's cross attention used (the reference computes that einsum a
 second time for the cache; the values are equal).
 
 Layer params and caches stay stacked (L, ...), as in
-models/transformer.py; the port loops over the layers in Python.  Decode
+models/transformer.py; the port loops over the layers in Python, and
+with `cfg.remat` a call that carries a gradient checkpoints each encoder
+and decoder layer (`layers.remat`), as the reference does.  Decode
 writes each layer's new self K/V rows into the stacked cache in place;
 the cross cache is read only.
 """
@@ -25,7 +27,7 @@ import torch
 
 from repro_torch.models import cache as kvcache
 from repro_torch.models import layers as L
-from repro_torch.models.param import pdef, stack_defs
+from repro_torch.models.param import layer_params, pdef, stack_defs
 from repro_torch.tree import tree_map
 
 ENC_LEN_CAP = 4096  # frontend frames occupying the encoder
@@ -74,14 +76,18 @@ def encode(params, cfg, frames, impl="auto"):
     x = frames
     positions = _positions(x.shape[0], x.shape[1], x.device)
     for i in range(cfg.enc_layers):
-        lp = tree_map(lambda a: a[i], params["enc_layers"])
-        h = L.apply_norm(lp["ln1"], x)
-        a, _ = L.attention_apply(lp["attn"], cfg, h, positions, mode="train",
-                                 causal=False, impl=impl)
-        x = x + a
-        h = L.apply_norm(lp["ln2"], x)
-        x = x + L.mlp_apply(lp["mlp"], cfg, h)
+        lp = layer_params(params["enc_layers"], i)
+        x = L.remat(cfg, _enc_block, lp, cfg, x, positions, impl, x=x, lp=lp)
     return L.apply_norm(params["enc_norm"], x)
+
+
+def _enc_block(lp, cfg, x, positions, impl="auto"):
+    h = L.apply_norm(lp["ln1"], x)
+    a, _ = L.attention_apply(lp["attn"], cfg, h, positions, mode="train",
+                             causal=False, impl=impl)
+    x = x + a
+    h = L.apply_norm(lp["ln2"], x)
+    return x + L.mlp_apply(lp["mlp"], cfg, h)
 
 
 def _dec_block(lp, cfg, x, positions, enc_out, mode, cache, impl="auto"):
@@ -145,9 +151,10 @@ def encdec_apply(params, cfg, batch_inputs, *, mode="train", cache=None,
 
     new_caches = []
     for i in range(cfg.num_layers):
-        lp = tree_map(lambda a: a[i], params["dec_layers"])
+        lp = layer_params(params["dec_layers"], i)
         lc = tree_map(lambda a: a[i], cache) if mode == "decode" else None
-        x, nc = _dec_block(lp, cfg, x, positions, enc_out, mode, lc, impl)
+        x, nc = L.remat(cfg, _dec_block, lp, cfg, x, positions, enc_out,
+                        mode, lc, impl, x=x, lp=lp)
         if mode == "prefill":
             new_caches.append(nc)
         elif mode == "decode":

@@ -11,8 +11,9 @@ Attention over a whole sequence (train, prefill: T == S, no query
 offset) goes to the `flash_attention` kernel for every length
 (`select_attention`): causal self attention, and non-causal for an
 encoder and for cross attention whose keys have the queries' length.
-Cross attention over keys of another length, and queries at an offset
-into their keys (contiguous chunk_prefill), take the reference's plain
+Cross attention over keys of another length, queries at an offset into
+their keys (contiguous chunk_prefill), and every call that carries a
+gradient (`grad_requested`: training) take the reference's plain
 routes, as plain torch:
 `attention_full` up to 4,096 positions, the blockwise scans
 (`flash_attention_xla`, `flash_attention_xla_triangular`) above.  The
@@ -29,10 +30,34 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import cache as kvcache
 from repro_torch.models.param import pdef
+from repro_torch.tree import leaves as _leaves
+
+
+def grad_requested(*tensors) -> bool:
+    """Whether a call carries a gradient: autograd is on and one of
+    `tensors` (None allowed) requires grad.  Such a call takes the
+    reference's plain routes, which autograd differentiates; the kernel
+    ops have no backward and raise on it.  The mode is not the signal: an
+    encoder runs mode="train" inside a prefill."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def remat(cfg, fn, *args, x, lp):
+    """fn(*args) for one layer (or super-block) of params `lp` on the
+    activations `x`; when cfg.remat and a gradient is requested, under
+    `torch.utils.checkpoint` (non-reentrant), which keeps the layer's
+    inputs and recomputes its inside in the backward pass, as the
+    reference's `jax.checkpoint` of the layer body does."""
+    if cfg.remat and grad_requested(x, *_leaves(lp)):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
 
 # --------------------------------------------------------------------------
 # Norms
@@ -360,9 +385,13 @@ def select_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     tensor (contiguous chunk_prefill passes the cache length) -- takes the
     reference's plain routes, which round P to the activation dtype:
     `attention_full` up to 4,096 positions, the triangular blockwise
-    schedule for long causal T == S, `flash_attention_xla` otherwise."""
+    schedule for long causal T == S, `flash_attention_xla` otherwise.
+    A call that carries a gradient takes the plain routes at any shape:
+    they are what the reference differentiates, and the kernel has no
+    backward."""
     T, S = q.shape[1], k.shape[1]
-    if T == S and isinstance(q_offset, int) and q_offset == 0:
+    if T == S and isinstance(q_offset, int) and q_offset == 0 \
+            and not grad_requested(q, k, v):
         return flash_ops.flash_attention(q, k, v, causal=causal,
                                          window=window, impl=impl)
     if max(T, S) <= 4096:
@@ -624,6 +653,9 @@ def moe_experts(p, cfg, xe):
     E, S, d = xe.shape
     h = act_fn(cfg.act)(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe,
                                                                 p["w_up"])
+    if grad_requested(h, p["w_down"]):     # out= has no autograd
+        y = torch.bmm(h, p["w_down"]).reshape(E * S, d)
+        return torch.cat([y, y.new_zeros(1, d)])
     ye = torch.empty(E * S + 1, d, device=xe.device,
                      dtype=torch.promote_types(h.dtype, p["w_down"].dtype))
     ye[-1].zero_()

@@ -29,6 +29,10 @@ class ParamDef:
     fan_in_axes: tuple[int, ...] = ()  # dims contributing to fan-in for scaling
 
 
+def is_def(x) -> bool:
+    return isinstance(x, ParamDef)
+
+
 def pdef(shape: Sequence[int], axes: Sequence, dtype=torch.bfloat16,
          init: str = "normal", fan_in_axes: Sequence[int] = ()) -> ParamDef:
     return ParamDef(tuple(int(s) for s in shape), dtype, tuple(axes),
@@ -42,6 +46,26 @@ def stack_defs(defs, n: int):
         lambda d: ParamDef((n,) + d.shape, d.dtype,
                            ("layers",) + d.logical_axes, d.init,
                            tuple(a + 1 for a in d.fan_in_axes)), defs)
+
+
+#: top-level keys of the layer stacks, one per family: transformer and
+#: ssm, the hybrid's super-blocks, the enc-dec's two stacks
+STACKED = ("layers", "super", "enc_layers", "dec_layers")
+
+
+class LayerSlices(list):
+    """A stacked (L, ...) param subtree given as its L per-layer trees, in
+    place of the stack.  A train step passes each layer's slice as a leaf
+    of its own (views of the stacked storage), so autograd's gradient of a
+    slice is that slice's alone, where indexing the stack inside the model
+    would add a full-size (L, ...) zero tensor per layer into its grad."""
+
+
+def layer_params(stack, i: int):
+    """Layer i's param tree of a stacked subtree or of its LayerSlices."""
+    if isinstance(stack, LayerSlices):
+        return stack[i]
+    return tree_map(lambda a: a[i], stack)
 
 
 def _scale(d: ParamDef) -> float:
@@ -127,7 +151,9 @@ def _leaf_from_reference(a, device) -> torch.Tensor:
 
 def from_reference(tree, device="cpu"):
     """The JAX package's params (any array-likes, e.g. numpy) -> the port's
-    tensors, leaf for leaf; keys and layouts are shared."""
+    tensors, leaf for leaf; keys and layouts are shared.  The optimizer
+    state crosses the same way ({"mu", "nu", "count"}: fp32 moments, an
+    int32 count, as `repro_torch.optim` keeps them)."""
     return tree_map(lambda a: _leaf_from_reference(a, device), tree)
 
 

@@ -5,7 +5,10 @@ each followed by a gated MLP.
 38 layers = 12 super-blocks of [rec, rec, attn] (stacked (12, ...) as the
 reference scans them; the port loops in Python) + a tail of [rec, rec].
 The RG-LRU's diagonal recurrence runs on the `linrec` kernel (D =
-lru_width), one launch per recurrent layer per prefill or decode step;
+lru_width), one launch per recurrent layer per prefill or decode step (a
+call that carries a gradient takes `ssm._chunked_linear_scan`, and with
+`cfg.remat` checkpoints each super-block, as the reference does; the
+tail pairs are not checkpointed, in the reference either);
 local attention runs on `flash_attention` with the config's window in
 prefill and on the ring-buffer decode of models/layers.py.  Decode writes
 the recurrent conv windows and states and the attention K/V rows into the
@@ -17,11 +20,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.linrec import ops as linrec_ops
 from repro_torch.models import cache as kvcache
 from repro_torch.models import layers as L
-from repro_torch.models.param import pdef, stack_defs
-from repro_torch.models.ssm import _causal_conv, conv_state, softplus
+from repro_torch.models.param import layer_params, pdef, stack_defs
+from repro_torch.models.ssm import _causal_conv, _scan, conv_state, softplus
 from repro_torch.tree import tree_map
 
 _C_RGLRU = 8.0
@@ -68,7 +70,7 @@ def rglru_apply(p, cfg, x, *, mode="train", cache=None, impl="auto"):
     b = torch.sqrt(torch.clamp(1.0 - torch.square(a), min=1e-9)) * gated_x
 
     h0 = cache["h"] if mode == "decode" else None
-    hs = linrec_ops.linrec(a, b, h0, impl=impl)
+    hs = _scan(a, b, h0, impl)
     hT = hs[:, -1].clone()
 
     y = hs.to(x.dtype) * L.act_fn("gelu")(yb)
@@ -108,6 +110,15 @@ def _pair_apply(p, cfg, x, positions, mixer, mode, cache, impl="auto"):
 
 
 SUPER = (("rec0", "rec"), ("rec1", "rec"), ("attn", "attn"))
+
+
+def _super_apply(lp, cfg, x, positions, mode, lc, impl):
+    """One super-block [rec, rec, attn] -> (x, {name: new cache})."""
+    nc = {}
+    for name, mixer in SUPER:
+        x, nc[name] = _pair_apply(lp[name], cfg, x, positions, mixer, mode,
+                                  lc[name] if lc else None, impl)
+    return x, nc
 
 
 def _superblock_defs(cfg):
@@ -173,13 +184,11 @@ def hybrid_lm_apply(params, cfg, batch_inputs, *, mode="train", cache=None,
 
     super_caches = []
     for i in range(n_super):
-        lp = tree_map(lambda a: a[i], params["super"])
+        lp = layer_params(params["super"], i)
         lc = tree_map(lambda a: a[i], cache["super"]) \
             if mode == "decode" else None
-        nc = {}
-        for name, mixer in SUPER:
-            x, nc[name] = _pair_apply(lp[name], cfg, x, positions, mixer,
-                                      mode, lc[name] if lc else None, impl)
+        x, nc = L.remat(cfg, _super_apply, lp, cfg, x, positions, mode, lc,
+                        impl, x=x, lp=lp)
         super_caches.append(nc)
 
     new_cache = None

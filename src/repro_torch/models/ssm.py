@@ -7,9 +7,12 @@ over (B, T, d_inner, N).  The reference evaluates it with a chunked
 associative scan (`_chunked_linear_scan`); the port runs it on the
 `linrec` kernel over the free (B, T, d_inner * N) view, one launch per
 layer in prefill and one per layer in each decode step (T = 1, from the
-cached state).  The rounding points of the reference are kept: prefill
-rounds the conv output to the activation dtype before `silu`, decode
-applies `silu` in fp32 and rounds after.
+cached state).  A call that carries a gradient (training) takes the
+reference's chunked scan, ported here, which autograd differentiates; the
+kernel has no backward.  With `cfg.remat` such a call checkpoints each
+layer (`layers.remat`).  The rounding points of the reference are kept:
+prefill rounds the conv output to the activation dtype before `silu`,
+decode applies `silu` in fp32 and rounds after.
 
 Layer params and caches stay stacked (L, ...) as in models/transformer.py;
 the port loops over L in Python.  Decode writes each layer's conv window
@@ -26,7 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.linrec import ops as linrec_ops
 from repro_torch.models import layers as L
-from repro_torch.models.param import pdef, stack_defs
+from repro_torch.models.param import layer_params, pdef, stack_defs
 from repro_torch.tree import tree_map
 
 
@@ -90,19 +93,77 @@ def _ab(p, cfg, xc, xdb):
     return a, b
 
 
+def _interleave(a, b):
+    """Along axis 1: a[0], b[0], a[1], b[1], ... (a one longer or equal)."""
+    m = b.shape[1]
+    ab = torch.stack([a[:, :m], b], dim=2).reshape(
+        (a.shape[0], 2 * m) + a.shape[2:])
+    return ab if a.shape[1] == m else torch.cat([ab, a[:, m:]], dim=1)
+
+
+def _associative_scan(combine, elems):
+    """`jax.lax.associative_scan` over axis 1, its recursion step for step
+    (pairs combined, the odd half scanned, the even half filled in): the
+    reference's products and sums in its order, to a few ulp (XLA may
+    fuse a product into its sum)."""
+    n = elems[0].shape[1]
+    if n < 2:
+        return elems
+    odd = _associative_scan(combine, combine([e[:, 0:-1:2] for e in elems],
+                                             [e[:, 1::2] for e in elems]))
+    rest = [e[:, 2::2] for e in elems]
+    even = combine([e[:, :-1] for e in odd] if n % 2 == 0 else odd, rest)
+    even = [torch.cat([e[:, :1], r], dim=1) for e, r in zip(elems, even)]
+    return [_interleave(e, o) for e, o in zip(even, odd)]
+
+
+def _combine(left, right):
+    (al, bl), (ar, br) = left, right
+    return [al * ar, bl * ar + br]
+
+
+def _chunked_linear_scan(a, b, h0, chunk):
+    """h_t = a_t*h_{t-1} + b_t over axis 1, port of the reference's
+    `ssm._chunked_linear_scan`: per chunk of `chunk` steps an associative
+    scan of the (a, b) pairs, the state carried across chunks.  a, b:
+    (B,T,...), h0: (B,...) -> (hs (B,T,...), hT).  Differentiable by
+    autograd: the route of a call that carries a gradient, where the
+    linrec kernel has no backward.  Unlike the reference it takes any T
+    (a last chunk may be shorter)."""
+    h, outs = h0, []
+    for c in range(0, a.shape[1], chunk):
+        acum, bcum = _associative_scan(_combine, [a[:, c:c + chunk],
+                                                  b[:, c:c + chunk]])
+        hs = acum * h[:, None] + bcum
+        outs.append(hs)
+        h = hs[:, -1]
+    return torch.cat(outs, dim=1), h
+
+
+def _scan(a, b, h0, impl):
+    """The selective scan of a, b (B,T,...) from h0 (B,...) or None
+    (zeros): the linrec kernel op, or `_chunked_linear_scan` (chunks of
+    256, the reference's) for a call that carries a gradient."""
+    if L.grad_requested(a, b, h0):
+        if h0 is None:
+            h0 = a.new_zeros((a.shape[0],) + a.shape[2:])
+        return _chunked_linear_scan(a, b, h0, 256)[0]
+    B, T = a.shape[0], a.shape[1]
+    hs = linrec_ops.linrec(a.reshape(B, T, -1), b.reshape(B, T, -1),
+                           None if h0 is None else h0.reshape(B, -1),
+                           impl=impl)
+    return hs.view(a.shape)
+
+
 def _ssm_inner(p, cfg, xc, z, h0, impl="auto"):
     """xc: conv+silu output (B,T,di); h0: (B,di,N) or None (zeros) ->
     (y (B,T,di), hT (B,di,N))."""
-    B, T, di = xc.shape
     N, r = cfg.ssm_state, _dt_rank(cfg)
     xdb = torch.einsum("btd,dr->btr", xc, p["w_x"])
     C_ssm = xdb[..., r + N:]
     a, b = _ab(p, cfg, xc, xdb)
-    hs = linrec_ops.linrec(
-        a.view(B, T, di * N), b.view(B, T, di * N),
-        None if h0 is None else h0.reshape(B, di * N), impl=impl)
+    hs = _scan(a, b, h0, impl)
     del a, b                                  # 2 x (B,T,di,N) fp32
-    hs = hs.view(B, T, di, N)
     hT = hs[:, -1].clone()
     y = torch.einsum("btdn,btn->btd", hs, C_ssm.float())
     del hs
@@ -145,6 +206,13 @@ def mamba_apply(p, cfg, x, *, mode="train", cache=None, impl="auto"):
     return out, new_cache
 
 
+def _ssm_block(lp, cfg, x, mode, cache, impl):
+    h = L.apply_norm(lp["ln"], x)
+    y, new_cache = mamba_apply(lp["mamba"], cfg, h, mode=mode, cache=cache,
+                               impl=impl)
+    return x + y, new_cache
+
+
 def ssm_block_defs(cfg):
     return {"ln": L.norm_defs(cfg), "mamba": mamba_defs(cfg)}
 
@@ -176,12 +244,10 @@ def ssm_lm_apply(params, cfg, batch_inputs, *, mode="train", cache=None,
     x = L.embed_apply(params["embed"], batch_inputs["tokens"])
     new_caches = []
     for i in range(cfg.num_layers):
-        lp = tree_map(lambda a: a[i], params["layers"])
+        lp = layer_params(params["layers"], i)
         lc = tree_map(lambda a: a[i], cache) if mode == "decode" else None
-        h = L.apply_norm(lp["ln"], x)
-        y, new_cache = mamba_apply(lp["mamba"], cfg, h, mode=mode, cache=lc,
-                                   impl=impl)
-        x = x + y
+        x, new_cache = L.remat(cfg, _ssm_block, lp, cfg, x, mode, lc, impl,
+                               x=x, lp=lp)
         if mode == "prefill":
             new_caches.append(new_cache)
         elif mode == "decode":

@@ -15,8 +15,12 @@
 Layer params stay stacked (L, ...) as the reference's `lax.scan` takes
 them (so `from_reference` moves them leaf for leaf, and a full-width
 model is never held twice); the port loops over L in Python and indexes
-the stack.  Caches are stacked (L, ...) too; decode and chunk_prefill
-write each layer's new K/V rows into them in place.  Every mode runs
+the stack (`param.layer_params`; a train step passes the stack as
+per-layer slices, `param.LayerSlices`).  With `cfg.remat`, a call that
+carries a gradient checkpoints each layer (`layers.remat`), where the
+reference wraps its scan body in `jax.checkpoint`.  Caches are stacked
+(L, ...) too; decode and chunk_prefill write each layer's new K/V rows
+into them in place.  Every mode runs
 each layer's MoE block on the rows it is given (padding rows of a
 bucketed chunk and idle decode slots included, as in the reference).
 
@@ -32,7 +36,7 @@ import torch
 
 from repro_torch.models import cache as kvcache
 from repro_torch.models import layers as L
-from repro_torch.models.param import stack_defs
+from repro_torch.models.param import layer_params, stack_defs
 from repro_torch.tree import tree_map
 
 
@@ -121,14 +125,14 @@ def lm_apply(params, cfg, batch_inputs, *, mode="train", cache=None,
 
     new_caches, aux = [], 0.0
     for i in range(cfg.num_layers):
-        lp = tree_map(lambda a: a[i], params["layers"])
+        lp = layer_params(params["layers"], i)
         lc = None
         if mode in ("decode", "chunk_prefill"):
             lc = tree_map(lambda a: a[i], cache)
             if bt is not None:
                 lc["bt"] = bt
-        x, new_cache, a = _block_apply(lp, cfg, x, positions, mode, lc,
-                                       impl)
+        x, new_cache, a = L.remat(cfg, _block_apply, lp, cfg, x, positions,
+                                  mode, lc, impl, x=x, lp=lp)
         aux = aux + a
         if mode == "prefill":
             new_caches.append(new_cache)

@@ -1059,3 +1059,54 @@ def test_ssm_serve_loop_on_card_matches_solo(cuda):
         loop.submit(Request(rid=i, prompt=p, max_new=6))
     done = {r.rid: r.out for r in loop.run_until_drained()}
     assert [done[i] for i in range(3)] == want
+
+
+@pytest.mark.parametrize("arch", ["granite-20b", "falcon-mamba-7b",
+                                  "recurrentgemma-9b",
+                                  "seamless-m4t-large-v2"])
+def test_train_step_on_card_follows_cpu(cuda, arch):
+    """Two adamw steps of a smoke model on the card against the same steps
+    on the CPU (examples/train_gap.py's params, batch and tolerances), with
+    no flash_attention or linrec launch: a step that carries a gradient
+    takes the plain routes."""
+    from repro_torch import threefry
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.examples import train_gap
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.linrec.kernel import linrec_cuda
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    model = build_model(get_smoke_config(arch))
+    params = model.init(threefry.key(0), "cpu")
+    batch = train_gap.train_batch(model, train_gap.BATCH, train_gap.SEQ)
+    cpu = train_gap.run_steps(model, params,
+                              train_gap.to_torch(batch, model, "cpu"))
+    before = (flash_attention_cuda.launches, linrec_cuda.launches)
+    card = train_gap.run_steps(model, tree_map(lambda t: t.to(cuda), params),
+                               train_gap.to_torch(batch, model, cuda))
+    assert (flash_attention_cuda.launches, linrec_cuda.launches) == before
+    card = (tree_map(lambda t: t.cpu(), card[0]),
+            tree_map(lambda t: t.cpu(), card[1]), card[2])
+    g = train_gap.gaps(params, cpu, card)
+    assert train_gap.violations(model.cfg, g) == [], g
+
+
+def test_train_loop_q8_exchange_on_card(cuda):
+    """launch/train.py on the card: 2 islands, 2 q8 exchanges in 4 steps,
+    one grouped quant8 quantise and dequantise each, the islands equal
+    after the last."""
+    from repro_torch.launch import train
+    before = (q8kernel.quantize_grouped_cuda.launches,
+              q8kernel.dequantize_grouped_cuda.launches)
+    res = train.main(["--arch", "granite-20b", "--smoke", "--steps", "4",
+                      "--islands", "2", "--local-steps", "2", "--batch",
+                      "4", "--seq", "32", "--compress", "q8"])
+    after = (q8kernel.quantize_grouped_cuda.launches,
+             q8kernel.dequantize_grouped_cuda.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 2)
+    assert res["tags"] == ["local", "exchange+q8", "local", "exchange+q8"]
+    assert all(np.isfinite(res["losses"]))
+    for leaf in leaves(res["params"]):
+        assert leaf.device.type == "cuda"
+        assert torch.equal(leaf[0], leaf[1])
