@@ -93,10 +93,18 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      scaled_dot_product_attention call (a yardstick the port never calls;
      a window the prompt passes as a boolean mask over K/V repeated to
      every head);
+  (a) the hardware model (dist/hardware.py) against the card: a bf16
+     torch.matmul at 8,192^3 and a 4 GB device-to-device copy in
+     CUDA-graph time, neither above its constant (989 TFLOP/s, 3.35
+     TB/s), and total_memory beside DEVICE_HBM_BYTES;
   11. the LM serving path at granite-20b's full width (20.32 B params,
      bf16, drawn on the card): `python -m repro_torch.launch.serve --full
      --batch 8 --prompt-len 2048 --gen 32` through its main, which must
      launch flash_attention once per layer (52), all on the wgmma route;
+     (b) its layout decision (serve.pick_layout on the host mesh) must be
+     stationary+head/bf16, its predicted param and cache bytes the drawn
+     params' and the allocated cache's exactly, its predicted peak
+     printed beside the measured one;
      then a batch of 2 x 2,048
      prefilled through the kernel, each layer's attention held against the
      plain version on the same q/k/v (3e-2), and again through the plain
@@ -105,7 +113,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      positions) draining 8 requests of 1 to 2,047 prompt tokens, 16 new
      tokens each: one flash launch per layer per admitted prefill, each
      first token equal to its solo prefill's; token agreement with solo
-     generation is reported;
+     generation is reported; (c) a ServeLoop the policy sizes,
+     ServeLoop(max_batch=48, max_len=32768, mesh=make_host_mesh()), on
+     phase 11's params: the decision must be stationary+head/int8
+     (head/bf16 over the 72 GB cap), the allocated cache its predicted
+     bytes exactly; prompts of 1, 77, 300 and 2,047 tokens, 16 new
+     tokens each: per admitted prefill 52 flash launches (wgmma) and 52
+     grouped quantises, per decode step 52 grouped quantises
+     (cache.write_kv) and 52 dequantises (cache.read_kv), each quant8
+     call bit-equal to the plain version, each first token its solo
+     prefill's; the same prompts again, unchecked, for the peak, which
+     must stay under 80 GB; then 32 slots, which must decide head/bf16,
+     one request admitted and its peak read; (d) the cost walk
+     (dist/cost.py) of phase 11's prefill on the card and on meta
+     tensors: flops by dtype, bytes and ops equal, the kernels reporting
+     by formula on both, the walk's roofline bound not above the
+     measured step time (bound, time, share, dominant term printed);
   13. paged serving at full width: `python -m repro_torch.launch.serve
      --full --paged --batch 8 --prompt-len 512 --gen 32` through its main
      (16 requests through PagedServeLoop's 8 slots, a pool of 273 blocks
@@ -221,10 +244,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      reference's tags, the islands agreeing after the last exchange; then
      the q8 run killed after step 2 and resumed from its checkpoint, its
      params and adamw state equal to the uninterrupted run's bit for bit
-     under torch.use_deterministic_algorithms;
+     under torch.use_deterministic_algorithms; before it, (d) the cost
+     walk of phase 25's train step (4 x 1,024, grad_accum 4, remat) on
+     the card and on meta, as for the prefill (both walks written to
+     artifacts/cost_walk_card.json for examples/gen_experiments.py);
   27. print the kernel table as JSON (flash_attention's and linrec's
      launches by path, the training paths' among them, 0; quant8's train
-     exchange launches), then the result line.
+     exchange launches; (e) phase (c)'s launches by path), then the
+     result line.
 
 Each model is freed before the next one is drawn (40.6 GB of weights
 for phases 11-12 and again for 13-15, then 14.6, 20.9, 40.9, 41.7, 7.6
@@ -249,9 +276,13 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
-FP32_FLOPS_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor cores
+# the card's constants and each kernel's work formula, one copy for the
+# bound column and the cost walk (dist/hardware.py; numpy only)
+from repro_torch.dist.hardware import (  # noqa: E402
+    BF16_FLOPS_PER_S, DEVICE_HBM_BYTES, HBM_BYTES_PER_S, fed_agg_work,
+    flash_attention_work, linrec_work, quant8_dequantize_work,
+    quant8_quantize_work, work_bound)
+
 # Best accuracy of the JAX package's quickstart run (examples/quickstart.py
 # fixes seed 0) after 80 async merges, on the CPU, per seed, as printed by
 # `PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_events.py`.
@@ -317,8 +348,6 @@ SCENARIO_HELD = ("clean_fedavg", "attacked_trimmed", "attacked_krum",
 Q8_WIDTHS = (5, 256, 1027, 4096, 151_936)
 Q8_ODD_VOCAB = 50_257              # a vocabulary row of no 16-byte multiple
 Q8_TOTALS = (1 << 10, 1 << 14, 1 << 18, 1 << 22, 1 << 26)
-Q8_OPS_PER_ELEMENT = {"quantize": 5, "dequantize": 1}   # abs, max, divide,
-#                                  round, clamp; multiply (fp32, no tensor core)
 EXCHANGE_P = 8                     # the exchange's leaf shapes at P islands
 Q8_LONG_LIST = 70                  # leaves: more than two tables' capacity
 L2_FLUSH_BYTES = 256 << 20         # read between cold calls: 5x the L2
@@ -438,7 +467,6 @@ FA_FAMILY = {VLM_ARCH: (FAMILY_BATCH, LM_PROMPT, 32, 32, 96, 0, True),
 # then grad_accum = 2 and remat on for a dense and a recurrent arch
 TRAIN_EXTRA = ({"grad_accum": 2}, {"remat": True})
 TRAIN_EXTRA_ARCHS = ("qwen1.5-4b", "falcon-mamba-7b")
-BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
 # phase 25: qwen1.5-4b at full width, whole (40 layers, grad_accum 4,
 # remat on): 3 steps through launch/train.py's main
 TRAIN_ARCH = "qwen1.5-4b"
@@ -475,6 +503,12 @@ TRAIN_FL_CASES = {
          "robust-exchange:trimmed_mean+q8-topk"])}
 # islands after an exchange (tests/test_system.py's consensus check)
 ISLAND_AGREE_TOL = 1e-5
+# the planning layer (phases a-d): phase (a)'s bf16 product and device
+# copy; phase (c)'s ServeLoop the policy sizes on one card (head/bf16 over
+# the cap at 48 slots, head/int8 picked; head/bf16 at 32), its prompts
+POLICY_SLOTS, POLICY_SMALL_SLOTS, POLICY_MAX_LEN = 48, 32, 32768
+POLICY_LENGTHS, POLICY_NEW = (1, 77, 300, 2047), 16
+MATMUL_N, COPY_BYTES = 8192, 4 * 10 ** 9
 
 
 def check(ok: bool, msg: str):
@@ -518,14 +552,6 @@ def eager_ms(torch, fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def bound(nbytes: int, ops: int,
-          flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
-    """Least time (ms) the card could take and what bounds it."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / flops_per_s * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
 def kernel_sweep(torch, np):
     from repro_torch.kernels.fed_agg.kernel import fed_agg_cuda
     from repro_torch.kernels.fed_agg.ref import fed_agg_2d_ref
@@ -551,7 +577,8 @@ def kernel_sweep(torch, np):
                 lib = graph_ms(torch, lambda: torch.einsum("kn,k->n", x, wl),
                                iters)
                 call = eager_ms(torch, lambda: fed_agg_cuda(x, w_host), iters)
-                b_ms, b_by = bound((K + 1) * N * x.element_size(), 2 * K * N)
+                b_ms, b_by = work_bound(fed_agg_work(
+                    K, N, x.element_size(), x.element_size()))
                 row = {"K": K, "N": N, "dtype": str(dtype).split(".")[-1],
                        "max_abs_err": err, "ms": ms,
                        "plain_ms": plain, "library_ms": lib,
@@ -663,7 +690,7 @@ def fed_agg_tree_sweep(torch, np):
     worker = tree_map(lambda p: p + 0.01, cnn)
     merge_call = eager_ms(torch, lambda: aggregation.async_merge(
         server, worker, 0.3), 1000)
-    b_ms, b_by = bound(3 * n * 4, 4 * n)
+    b_ms, b_by = work_bound(fed_agg_work(len(merge), n, 4, 4))
     rec = {"max_abs_err": errs[0], "ms": ms, "plain_ms": plain,
            "floor_ms": floor, "call_ms": call, "floor_call_ms": floor_call,
            "async_merge_call_ms": merge_call, "bound_ms": b_ms,
@@ -732,16 +759,16 @@ def quant8_row(torch, x, out_dtype, *, check_nonfinite: bool):
     iters = 200 if R * C <= 1 << 18 else 20
     n, itemsize, out_size = R * C, x.element_size(), out.element_size()
     recs = {}
-    for name, kern, plain, lib, nbytes in (
+    for name, kern, plain, lib, work in (
             ("quantize", lambda: q8.quantize_rows_cuda(x),
              lambda: quantize_rows_ref(x), None,
-             n * itemsize + n + 4 * R),
+             quant8_quantize_work(n, R, itemsize)),
             ("dequantize", lambda: q8.dequantize_rows_cuda(q, s, out_dtype),
              lambda: dequantize_rows_ref(q, s, out_dtype),
              (lambda: torch.mul(q, s)) if out_dtype == torch.float32
              else None,
-             n + 4 * R + n * out_size)):
-        b_ms, b_by = bound(nbytes, Q8_OPS_PER_ELEMENT[name] * n)
+             quant8_dequantize_work(n, R, out_size))):
+        b_ms, b_by = work_bound(work)
         recs[name] = {
             "rows": R, "C": C, "dtype": str(x.dtype).split(".")[-1],
             "max_abs_err": q_err if name == "quantize" else d_err,
@@ -886,18 +913,19 @@ def quant8_group_record(torch, label, xs, out_dtype, flush):
         for (q, s), o in zip(zip(qs, ss), outs):
             torch.testing.assert_close(torch.mul(q, s), o, rtol=0, atol=0,
                                        equal_nan=True)
-    for name, grouped, singles, plain, library, nbytes, err in (
+    for name, grouped, singles, plain, library, work, err in (
             ("quantize", lambda: q8.quantize_grouped_cuda(xs),
              lambda: [q8.quantize_rows_cuda(x) for x in xs],
              lambda: quantize_rows_grouped_ref(xs), None,
-             n * in_size + n + 4 * R, q_err),
+             quant8_quantize_work(n, R, in_size), q_err),
             ("dequantize",
              lambda: q8.dequantize_grouped_cuda(qs, ss, out_dtype),
              lambda: [q8.dequantize_rows_cuda(q, s, out_dtype)
                       for q, s in zip(qs, ss)],
              lambda: dequantize_rows_grouped_ref(qs, ss, out_dtype), mul,
-             n + 4 * R + n * out_size, d_err)):
-        b_ms, b_by = bound(nbytes, Q8_OPS_PER_ELEMENT[name] * n)
+             quant8_dequantize_work(n, R, out_size), d_err)):
+        b_ms, b_by = work_bound(work)
+        nbytes = work[1]
         rec = {"leaves": len(xs), "rows": R, "elements": n,
                "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None, "library_cold_ms": None}
@@ -980,14 +1008,6 @@ def exchange_path(torch):
         print(f"fl_exchange {tier}: parity {parity}", flush=True)
         outputs[fog_cells] = outs
     return outputs
-
-
-def attention_pairs(T: int, window: int, causal: bool) -> int:
-    """(query, key) pairs the mask leaves live, S == T."""
-    t = np.arange(T)
-    lo = np.maximum(t - window + 1, 0) if window else np.zeros_like(t)
-    hi = t + 1 if causal else np.full_like(t, T)
-    return int((hi - lo).sum())
 
 
 def flash_sweep(torch):
@@ -1075,11 +1095,12 @@ def flash_sweep(torch):
             lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kr, vr, attn_mask=mask), 20)
             del kr, vr, mask
-        flops = 4 * D * attention_pairs(T, window, causal) * B * H
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        work = flash_attention_work(B, T, T, H, Hkv, D, window, causal,
+                                    q.dtype)
+        (flops,), nbytes = work[0].values(), work[1]
+        b_ms, b_by = work_bound(work)
         # P kept as hi + lo bf16 doubles the P V half of the tensor work
-        split_ms, _ = bound(nbytes, flops * 3 // 2, BF16_FLOPS_PER_S)
+        split_ms, _ = work_bound(({"bfloat16": flops * 3 // 2}, nbytes))
         recs[arch] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "library_ms": lib_ms, "bound_ms": b_ms,
                       "bound_by": b_by}
@@ -1347,8 +1368,8 @@ def moe_layer_times(torch, model, params, card: str) -> dict:
                                                   C),
             "layer": lambda: layers.moe_apply(p, cfg, x)}
         ms = {name: graph_ms(torch, fn, 5) for name, fn in parts.items()}
-        b_ms, b_by = bound(3 * E * d * f * 2, 6 * E * G * C * d * f,
-                           BF16_FLOPS_PER_S)
+        b_ms, b_by = work_bound(({"bfloat16": 6 * E * G * C * d * f},
+                                 3 * E * d * f * 2))
         gathers = ms["route"] + ms["dispatch"] + ms["combine"]
         out[label] = {**ms, "experts_bound_ms": b_ms, "bound_by": b_by}
         print(f"{cfg.name} MoE layer, {label} {MOE_BATCH}x{T} (G {G}, C "
@@ -1765,9 +1786,9 @@ def linrec_sweep(torch):
         plain_ms = graph_ms(torch, lambda: linrec_ref(a, b, h0),
                             iters if T == 1 else 1)
         call_ms = eager_ms(torch, lambda: linrec_cuda(a, b, h0), iters)
-        n = B * T * D
-        nbytes = 12 * n + (4 * B * D if with_h0 else 0)
-        b_ms, b_by = bound(nbytes, 2 * n)
+        work = linrec_work(B, T, D, a.element_size(), with_h0)
+        b_ms, b_by = work_bound(work)
+        nbytes = work[1]
         recs[label] = {"shape": (B, T, D), "max_abs_err": err,
                        "route_taken": taken, "ms": ms[taken],
                        "column_ms": ms["column"], "tma_ms": ms["tma"],
@@ -2372,6 +2393,359 @@ def train_fl(torch, card: str) -> dict:
     return {"cases": out, "quant8": q8_total, "n_params": n_params}
 
 
+# -- the planning layer (phases a-d) ------------------------------------------
+
+def hardware_check(torch, card: str) -> dict:
+    """Phase (a): the hardware model (dist/hardware.py) against the card:
+    a bf16 torch.matmul of MATMUL_N^3 and a COPY_BYTES device-to-device
+    copy (read once, written once) in CUDA-graph time, neither of which
+    may read above its constant (a roofline share above 100 % otherwise),
+    and the card's memory beside DEVICE_HBM_BYTES."""
+    n = MATMUL_N
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(n, n, generator=g, device="cuda").to(torch.bfloat16)
+    b = torch.randn(n, n, generator=g, device="cuda").to(torch.bfloat16)
+    mm_ms = graph_ms(torch, lambda: torch.matmul(a, b), 20)
+    mm_rate = 2 * n ** 3 / (mm_ms / 1e3)
+    del a, b
+    src = torch.ones(COPY_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    cp_ms = graph_ms(torch, lambda: dst.copy_(src), 10)
+    cp_rate = 2 * COPY_BYTES / (cp_ms / 1e3)
+    check(torch.equal(dst[-1024:], src[-1024:]), "device copy wrong")
+    del src, dst
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"phase (a), the hardware model against the card ({card}): bf16 "
+          f"matmul {n}^3 {mm_ms:.4f} ms = {mm_rate / 1e12:.1f} TFLOP/s "
+          f"({mm_rate / BF16_FLOPS_PER_S:.2%} of the model's "
+          f"{BF16_FLOPS_PER_S / 1e12:.0f}); a {COPY_BYTES / 1e9:.0f} GB "
+          f"device copy {cp_ms:.4f} ms = {cp_rate / 1e12:.3f} TB/s read + "
+          f"written ({cp_rate / HBM_BYTES_PER_S:.2%} of "
+          f"{HBM_BYTES_PER_S / 1e12:.2f}); total_memory {total:,} B beside "
+          f"DEVICE_HBM_BYTES {DEVICE_HBM_BYTES:,.0f}", flush=True)
+    check(mm_rate <= BF16_FLOPS_PER_S, f"bf16 matmul {mm_rate:.4g} FLOP/s "
+          f"above the model's {BF16_FLOPS_PER_S:.4g}")
+    check(cp_rate <= HBM_BYTES_PER_S, f"device copy {cp_rate:.4g} B/s "
+          f"above the model's {HBM_BYTES_PER_S:.4g}")
+    return {"matmul_ms": mm_ms, "matmul_flops_per_s": mm_rate,
+            "copy_ms": cp_ms, "copy_bytes_per_s": cp_rate,
+            "total_memory": total}
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def decision_check(torch, res, card: str) -> dict:
+    """Phase (b): phase 11's serve went through serve.pick_layout: the
+    decision is stationary+head/bf16 and its predicted param and cache
+    bytes are the drawn params' and the allocated cache's, exactly."""
+    d = res["decision"]
+    p_pred, c_pred = d.chosen.detail["param_bytes"], \
+        d.chosen.detail["cache_bytes"]
+    p_real, c_real = tree_bytes(res["params"]), tree_bytes(res["cache"])
+    print(f"phase (b), serve.py's decision ({card}): {d.key}, predicted "
+          f"params {p_pred:,.0f} B (drawn {p_real:,} B), cache "
+          f"{c_pred:,.0f} B (allocated {c_real:,} B), peak "
+          f"{d.chosen.hbm_bytes / 1e9:.2f} GB predicted beside "
+          f"{res['peak_gb']:.2f} GB measured (max_memory_allocated) -- "
+          f"{d.reason}", flush=True)
+    check(d.key == "stationary+head/bf16", f"serve.py decided {d.key}")
+    check(p_pred == p_real, f"predicted param bytes {p_pred} != {p_real}")
+    check(c_pred == c_real, f"predicted cache bytes {c_pred} != {c_real}")
+    return {"key": d.key, "predicted_gb": d.chosen.hbm_bytes / 1e9,
+            "measured_gb": res["peak_gb"]}
+
+
+def policy_loop(torch, model, params, card: str) -> dict:
+    """Phase (c): granite-20b in a ServeLoop the policy sizes on the host
+    mesh, POLICY_SLOTS x POLICY_MAX_LEN: the decision must be
+    stationary+head/int8 (head/bf16 over the cap), the allocated cache its
+    predicted bytes exactly; POLICY_LENGTHS prompts drained with
+    POLICY_NEW tokens each, counted from zero and by path (each admitted
+    prefill: one flash launch and one grouped quantise a layer; each
+    decode step: one grouped quantise (cache.write_kv) and dequantise
+    (cache.read_kv) a layer), every quant8 call held bit for bit against
+    the plain version, each first token its solo prefill's; then the same
+    prompts again, unchecked, for the peak, which must stay under
+    DEVICE_HBM_BYTES; then POLICY_SMALL_SLOTS slots, which must decide
+    head/bf16, one request admitted and its peak read the same way."""
+    from repro_torch.dist.hardware import memory_dict
+    from repro_torch.dist.policy import decide, eval_from_measured
+    from repro_torch.kernels.quant8 import kernel as q8
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve_loop import Request, ServeLoop
+    from repro_torch.launch.steps import make_prefill_step
+    flash = serve.KERNELS["flash_attention"]
+    L = model.cfg.num_layers
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
+               for n in POLICY_LENGTHS]
+
+    def counts():
+        return {"flash_attention": flash.launches,
+                "quantize": q8.quantize_grouped_cuda.launches,
+                "dequantize": q8.dequantize_grouped_cuda.launches}
+
+    def drain(loop, reqs):
+        for r in reqs:
+            loop.submit(r)
+        done = {r.rid: r.out for r in loop.run_until_drained()}
+        torch.cuda.synchronize()
+        return done
+
+    def measured(d):
+        """The chosen candidate as the card measured it: its allocator
+        peak (memory_dict), scored against the same budget."""
+        m = eval_from_measured(d.layout, memory_dict(), {},
+                               cache=d.cache_spec)
+        return m.hbm_bytes, decide([m]).fits
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    loop = ServeLoop(model, params, max_batch=POLICY_SLOTS,
+                     max_len=POLICY_MAX_LEN, mesh=make_host_mesh())
+    d = loop.layout_decision
+    cap = d.budget_bytes * d.margin
+    table = ", ".join(f"{e.key} {e.hbm_bytes / 1e9:.2f} GB" for e in d.evals)
+    print(f"phase (c), ServeLoop(max_batch={POLICY_SLOTS}, max_len="
+          f"{POLICY_MAX_LEN}, mesh=make_host_mesh()) at full width "
+          f"({card}): decision {d.key}, cap {cap / 1e9:.2f} GB; candidates "
+          f"{table}", flush=True)
+    bf16 = next(e for e in d.evals if e.key == "stationary+head/bf16")
+    check(d.key == "stationary+head/int8" and d.fits,
+          f"policy ServeLoop at {POLICY_SLOTS} slots decided {d.key}")
+    check(bf16.hbm_bytes > cap, f"head/bf16 at {bf16.hbm_bytes / 1e9:.2f} "
+          f"GB is not over the {cap / 1e9:.2f} GB cap")
+    alloc = tree_bytes(loop.cache)
+    check(alloc == d.chosen.detail["cache_bytes"], f"allocated cache "
+          f"{alloc} B != predicted {d.chosen.detail['cache_bytes']} B")
+    per = {"prefill": [], "decode": []}
+    for attr, path in (("_prefill", "prefill"), ("_decode", "decode")):
+        def counted(*args, inner=getattr(loop, attr), path=path):
+            before = counts()
+            out = inner(*args)
+            per[path].append({k: v - before[k] for k, v in counts().items()})
+            return out
+        setattr(loop, attr, counted)
+    flash.launches = 0
+    flash.routes.update(dict.fromkeys(flash.routes, 0))
+    q8.quantize_grouped_cuda.launches = 0
+    q8.dequantize_grouped_cuda.launches = 0
+    with held_quant8(torch) as held:
+        done = drain(loop, [Request(rid=i, prompt=p, max_new=POLICY_NEW)
+                            for i, p in enumerate(prompts)])
+    launches = counts()
+    wall = time.perf_counter() - t0
+    check(sorted(done) == list(range(len(prompts)))
+          and all(len(o) == POLICY_NEW for o in done.values()),
+          f"policy ServeLoop: {len(done)} requests done")
+    steps = len(per["decode"])
+    pre_want = {"flash_attention": L, "quantize": L, "dequantize": 0}
+    dec_want = {"flash_attention": 0, "quantize": L, "dequantize": L}
+    check(len(per["prefill"]) == len(prompts)
+          and all(c == pre_want for c in per["prefill"]),
+          f"policy ServeLoop launches per prefill {per['prefill']}, "
+          f"expected {pre_want} each")
+    check(all(c == dec_want for c in per["decode"]),
+          f"policy ServeLoop launches per decode step {per['decode']}, "
+          f"expected {dec_want} each")
+    check(launches == {k: pre_want[k] * len(prompts) + dec_want[k] * steps
+                       for k in launches}, f"launches {launches}")
+    check(flash.routes["wgmma"] == launches["flash_attention"],
+          f"policy ServeLoop flash routes {flash.routes}")
+    errs = {}
+    for name, calls in held.items():
+        n_want = 2 * launches[name]           # K and V: two leaves a call
+        check(len(calls) == n_want, f"policy ServeLoop: {len(calls)} "
+              f"{name} leaves held, expected {n_want}")
+        errs[name] = float(torch.stack([e for _, e in calls]).max())
+        check(errs[name] == 0.0, f"policy ServeLoop quant8 {name} vs plain "
+              f"max |diff| {errs[name]}")
+    prefill = make_prefill_step(loop.model)
+    first = []
+    for i, p in enumerate(prompts):
+        nxt, pc = prefill(params, {"tokens": torch.as_tensor(
+            p[None], device="cuda")})
+        first.append(int(nxt[0]) == done[i][0])
+        del pc
+    check(all(first), f"policy ServeLoop first tokens vs solo {first}")
+    print(f"phase (c): {len(prompts)} requests (prompts {POLICY_LENGTHS}) x "
+          f"{POLICY_NEW} tokens in {wall:.2f} s, {steps} decode steps; "
+          f"launches {launches}: per admitted prefill {pre_want}, per decode "
+          f"step {dec_want}; every quant8 call bit-equal to the plain "
+          f"version ({len(held['quantize'])} quantised and "
+          f"{len(held['dequantize'])} dequantised leaves); first tokens "
+          f"equal their solo prefills' ({sum(first)}/{len(prompts)}); "
+          f"allocated cache {alloc / 1e9:.2f} GB = predicted", flush=True)
+    # the same requests again, unchecked: the peak the policy predicted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    drain(loop, [Request(rid=10 + i, prompt=p, max_new=POLICY_NEW)
+                 for i, p in enumerate(prompts)])
+    peak, in_cap = measured(d)
+    print(f"phase (c) at {POLICY_SLOTS} slots: peak {peak / 1e9:.2f} GB "
+          f"measured beside {d.chosen.hbm_bytes / 1e9:.2f} GB predicted "
+          f"({d.key}; within the {cap / 1e9:.0f} GB cap: {in_cap}; limit "
+          f"{DEVICE_HBM_BYTES / 1e9:.0f} GB; {card})", flush=True)
+    check(peak < DEVICE_HBM_BYTES, f"policy ServeLoop peak {peak} B")
+    del loop, prefill
+    torch.cuda.empty_cache()
+    loop = ServeLoop(model, params, max_batch=POLICY_SMALL_SLOTS,
+                     max_len=POLICY_MAX_LEN, mesh=make_host_mesh())
+    d32 = loop.layout_decision
+    check(d32.key == "stationary+head/bf16",
+          f"policy ServeLoop at {POLICY_SMALL_SLOTS} slots decided {d32.key}")
+    alloc32 = tree_bytes(loop.cache)
+    check(alloc32 == d32.chosen.detail["cache_bytes"], f"allocated cache "
+          f"{alloc32} B != predicted {d32.chosen.detail['cache_bytes']} B")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    drain(loop, [Request(rid=0, prompt=prompts[2], max_new=POLICY_NEW)])
+    peak32, in_cap32 = measured(d32)
+    print(f"phase (c) at {POLICY_SMALL_SLOTS} slots: decision {d32.key}, "
+          f"peak {peak32 / 1e9:.2f} GB measured beside "
+          f"{d32.chosen.hbm_bytes / 1e9:.2f} GB predicted (within the cap: "
+          f"{in_cap32}), cache {alloc32 / 1e9:.2f} GB = predicted ({card})",
+          flush=True)
+    check(peak32 < DEVICE_HBM_BYTES, f"policy ServeLoop peak {peak32} B")
+    del loop
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_prefill": pre_want,
+            "per_decode_step": dec_want, "decode_steps": steps,
+            "max_abs_err": errs, "peak_gb": peak / 1e9,
+            "predicted_gb": d.chosen.hbm_bytes / 1e9,
+            "bf16_gb": bf16.hbm_bytes / 1e9, "peak32_gb": peak32 / 1e9,
+            "predicted32_gb": d32.chosen.hbm_bytes / 1e9}
+
+
+def walk_vs_card(torch, label: str, step, card_args, meta_args, card: str,
+                 runs: int = 3) -> dict:
+    """Phase (d): one call of `step` walked on the card and on meta
+    tensors (dist/cost.py) must give the same flops by dtype, bytes and
+    ops, the kernels reporting by formula on both; the roofline of the
+    walk (dist/hardware.Roofline on the H100 model) must not exceed the
+    step's measured time (the least of `runs` calls, synchronised)."""
+    from repro_torch.dist import cost
+    from repro_torch.dist.hardware import Roofline
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = cost.analyze(step, *card_args())
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_meta = cost.analyze(step, *meta_args())
+    t_meta = time.perf_counter() - t0
+    check(on_card["out"] is not None and on_meta["out"] is not None,
+          f"{label}: walk failed: card {on_card['diagnostics'][:3]}, meta "
+          f"{on_meta['diagnostics'][:3]}")
+    on_card["out"] = on_meta["out"] = None
+    a, b = cost.totals(on_card), cost.totals(on_meta)
+    if a != b:
+        for k in sorted(set(a["by_op"]) | set(b["by_op"])):
+            if a["by_op"].get(k) != b["by_op"].get(k):
+                print(f"  {label} walk differs at {k}: card "
+                      f"{a['by_op'].get(k)}, meta {b['by_op'].get(k)}")
+    check(a == b, f"{label}: walk on the card != walk on meta "
+          f"(flops {a['flops_by_dtype']} vs {b['flops_by_dtype']}, bytes "
+          f"{a['hbm_bytes']} vs {b['hbm_bytes']})")
+    times = []
+    for _ in range(runs):
+        args = card_args()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del out, args
+    measured = min(times)
+    roof = Roofline.of(on_meta)
+    kernels = {k: (v["count"], v["flops"], v["bytes"])
+               for k, v in on_meta["by_op"].items()
+               if not k.startswith("aten.")}
+    top = {k: (v["count"], round(v["bytes"] / 1e9, 3)) for k, v in sorted(
+        on_meta["by_op"].items(), key=lambda kv: -kv[1]["bytes"])[:8]}
+    print(f"phase (d), cost walk of {label} ({card}): card == meta: flops "
+          f"{ {k: f'{v:.6g}' for k, v in on_meta['flops_by_dtype'].items()} }"
+          f", {on_meta['hbm_bytes'] / 1e9:.3f} GB, "
+          f"{sum(v['count'] for v in on_meta['by_op'].values())} ops "
+          f"(kernels by formula {kernels}); walked in {t_card:.1f} s on the "
+          f"card, {t_meta:.1f} s on meta; bound {roof.bound_s:.4f} s "
+          f"({roof.dominant}: compute {roof.t_compute_s:.4f}, memory "
+          f"{roof.t_memory_s:.4f}), measured {measured:.4f} s (least of "
+          f"{[round(t, 4) for t in times]}), share of the roofline "
+          f"{roof.bound_s / measured:.4f}; most bytes (count, GB): {top}",
+          flush=True)
+    check(roof.bound_s <= measured, f"{label}: bound {roof.bound_s} s > "
+          f"measured {measured} s")
+    return {"bound_s": roof.bound_s, "measured_s": measured,
+            "share": roof.bound_s / measured, "dominant": roof.dominant,
+            "t_compute_s": roof.t_compute_s, "t_memory_s": roof.t_memory_s,
+            "flops_by_dtype": on_meta["flops_by_dtype"],
+            "hbm_bytes": on_meta["hbm_bytes"], "kernels": kernels,
+            "top_bytes": top,
+            "times_s": times, "equal": True,
+            "meta": cost.totals(on_meta), "card": cost.totals(on_card)}
+
+
+def prefill_walk(torch, model, params, card: str) -> dict:
+    """Phase (d), granite-20b's prefill at LM_BATCH x LM_PROMPT (phase
+    11's) walked on the card and on meta."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.param import abstract_params
+    batch = serve.make_batch(model.cfg, np.random.default_rng(0), LM_BATCH,
+                             LM_PROMPT, "cuda")
+    shape = ShapeConfig("serve", "prefill", LM_PROMPT, LM_BATCH)
+    return walk_vs_card(
+        torch, f"{LM_ARCH} prefill {LM_BATCH}x{LM_PROMPT}",
+        make_prefill_step(model), lambda: (params, batch),
+        lambda: (abstract_params(model.param_defs()),
+                 abstract_params(model.input_defs(shape))), card)
+
+
+def train_walk(torch, card: str) -> dict:
+    """Phase (d), qwen1.5-4b's train step at phase 25's shape (batch x
+    seq, grad_accum 4, remat), params and adamw state drawn on the card,
+    walked on the card and on meta; its steps update the params."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import (batch_token_stream,
+                                            make_token_stream)
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.param import (abstract_params,
+                                          init_params_on_device)
+    from repro_torch.optim import adamw, cosine_warmup
+    args = train.parse_args(TRAIN_FULL)
+    model = build_model(get_config(TRAIN_ARCH))
+    opt = adamw(cosine_warmup(args.lr, 10, args.steps))
+    step = make_train_step(model, opt)
+    params = init_params_on_device(args.seed, model.param_defs(), "cuda")
+    state = opt.init(params)
+    stream = make_token_stream(model.cfg.vocab_size, 400_000, seed=args.seed)
+    x, y = batch_token_stream(stream, args.batch, args.seq, 0)
+    batch = {"tokens": torch.as_tensor(x, device="cuda"),
+             "labels": torch.as_tensor(y, device="cuda")}
+    shape = ShapeConfig("train", "train", args.seq, args.batch)
+
+    def meta():
+        p = abstract_params(model.param_defs())
+        return p, opt.init(p), abstract_params(model.input_defs(shape))
+    rec = walk_vs_card(
+        torch, f"{TRAIN_ARCH} train step {args.batch}x{args.seq} "
+        f"(grad_accum {model.cfg.grad_accum}, remat {model.cfg.remat})",
+        step, lambda: (params, state, batch), meta, card, runs=2)
+    del params, state
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2586,14 +2960,23 @@ def main() -> int:
     fa_recs = flash_sweep(torch)
     fa_main = fa_recs[LM_ARCH]
 
-    # 11. the LM serving path at full width, counted from zero
+    # (a) the hardware model against the card
+    hw_rec = hardware_check(torch, card)
+
+    # 11. the LM serving path at full width, counted from zero; (b) its
+    #     layout decision against the drawn params and allocated cache
     res, lm_launches, lm_peak = lm_serve(torch, LM_ARCH, LM_BATCH)
+    decision_rec = decision_check(torch, res, card)
     model, params = res["model"], res["params"]
     del res
     lm_kernel_vs_plain(torch, model, params)
 
     # 12. continuous batching at full width, counted from zero
     loop_launches = lm_serve_loop(torch, model, params, LOOP_LENGTHS)
+    # (c) the ServeLoop the policy sizes (head/int8 at 48 slots), counted
+    #     from zero; (d) the cost walk of the prefill, card against meta
+    policy = policy_loop(torch, model, params, card)
+    walks = {f"{LM_ARCH} prefill": prefill_walk(torch, model, params, card)}
     del model, params
     torch.cuda.empty_cache()
 
@@ -2674,7 +3057,12 @@ def main() -> int:
     # 26. its federated loop cut to 4 layers, quant8 counted from zero
     tr_smoke = train_smoke(torch)
     tr_full = train_full(torch, card)
+    # (d) the cost walk of the full-width train step, card against meta
+    walks[f"{TRAIN_ARCH} train step"] = train_walk(torch, card)
     tr_fl = train_fl(torch, card)
+    out = ROOT / "artifacts" / "cost_walk_card.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps(walks, indent=1, default=str))
 
     # 27. results
     # fed_agg on its main path: one grouped launch over the async merge's
@@ -2707,16 +3095,20 @@ def main() -> int:
             "name": f"quant8_{name}", "route": "cuda",
             "source": "src/repro_torch/kernels/quant8/csrc/quant8.cu",
             "replaces": f"src/repro/kernels/quant8/kernel.py:{line}",
-            # the exchange path's, the chunked int8 prefill's and the
-            # train loop's exchanges
+            # the exchange path's, the chunked int8 prefill's, the train
+            # loop's exchanges and the policy's int8 ServeLoop
             "launches": q8_launches[name] + chunk_q8[name]
-            + tr_fl["quant8"][name],
+            + tr_fl["quant8"][name] + policy["launches"][name],
             "launches_by_path": {"exchange": q8_launches[name],
                                  "chunked_int8_prefill": chunk_q8[name],
-                                 "train_exchange": tr_fl["quant8"][name]},
+                                 "train_exchange": tr_fl["quant8"][name],
+                                 "policy_int8_serveloop":
+                                     policy["launches"][name]},
             # the exchange's group and every call of the chunked prefill
+            # and of the policy's ServeLoop
             "max_abs_err": max(t["max_abs_err"],
-                               chunk_res["max_abs_err"][name]),
+                               chunk_res["max_abs_err"][name],
+                               policy["max_abs_err"][name]),
             **({"overhead_launches":
                 paper_launches["overhead"]["quant8_quantize"]}
                if name == "quantize" else {}),
@@ -2727,6 +3119,8 @@ def main() -> int:
             "library_warm_ms": t["library_ms"]})
     flash_paths = {f"{LM_ARCH} serve": lm_launches["flash_attention"],
                    f"{LM_ARCH} ServeLoop": loop_launches["flash_attention"],
+                   f"{LM_ARCH} policy ServeLoop (head/int8)":
+                       policy["launches"]["flash_attention"],
                    f"{HYBRID_ARCH} serve":
                        hybrid_launches["flash_attention"]}
     for arch, r in (*moe.items(), *fam.items()):
@@ -2798,6 +3192,19 @@ def main() -> int:
           + ", ".join(f"{k} {c['peak_gb']:.2f} GB"
                       for k, c in tr_fl["cases"].items())
           + f"; quant8 in the train loop {tr_fl['quant8']} ({card})",
+          flush=True)
+    print(f"planning layer ({card}): bf16 matmul "
+          f"{hw_rec['matmul_flops_per_s'] / 1e12:.1f} TFLOP/s, copy "
+          f"{hw_rec['copy_bytes_per_s'] / 1e12:.3f} TB/s; serve.py "
+          f"{decision_rec['key']} (predicted {decision_rec['predicted_gb']:.2f}"
+          f" GB, measured {decision_rec['measured_gb']:.2f} GB); policy "
+          f"ServeLoop head/int8 peak {policy['peak_gb']:.2f} GB (predicted "
+          f"{policy['predicted_gb']:.2f}), head/bf16 at {POLICY_SMALL_SLOTS} "
+          f"slots {policy['peak32_gb']:.2f} GB (predicted "
+          f"{policy['predicted32_gb']:.2f}); walks "
+          + ", ".join(f"{k}: bound {w['bound_s']:.4f} s / measured "
+                      f"{w['measured_s']:.4f} s = {w['share']:.4f} "
+                      f"({w['dominant']})" for k, w in walks.items()),
           flush=True)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,9 @@ after each.
   PYTHONPATH=src python -m repro_torch.examples.paper.run \\
       [--only fig12,...,fig18,fedopt,overhead] [--seed N] [--device cpu]
 
-`--seed` reaches every bench.  The JAX package's roofline reader has no
-counterpart yet (it reads the XLA planning layer's dry-run artifacts), so
-asking for it raises.
+`--seed` reaches every bench.  `roofline` prints the port's roofline
+rows (examples/roofline.py) from the dry run's artifacts
+(`python -m repro_torch.launch.dryrun`); with none, only its header.
 """
 from __future__ import annotations
 
@@ -23,6 +23,14 @@ from repro_torch.examples.paper import (beyond_fedopt, fig12_sequential_vs_fl,
                                         fig17_alg2_sync, fig18_async,
                                         overhead)
 
+
+def _roofline(seed: int = 0, device: str = "cuda"):
+    """The roofline reader; it reads artifacts, so seed and device do not
+    reach it."""
+    from repro_torch.examples import roofline
+    return roofline.main([])
+
+
 BENCHES = {
     "fig12": fig12_sequential_vs_fl.main,
     "fig13": fig13_even_vs_uneven.main,
@@ -33,6 +41,7 @@ BENCHES = {
     "fig18": fig18_async.main,
     "fedopt": beyond_fedopt.main,
     "overhead": overhead.main,
+    "roofline": _roofline,
 }
 
 
@@ -40,16 +49,13 @@ def main(argv=None) -> dict:
     """-> {bench: (its main's return value, wall seconds)}, in run order."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=None,
-                    help="comma list: fig12,...,fig18,fedopt,overhead")
+                    help="comma list: fig12,...,fig18,fedopt,overhead,"
+                         "roofline")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     only = args.only.split(",") if args.only else list(BENCHES)
     for name in only:
-        if name == "roofline":
-            raise NotImplementedError(
-                "roofline: the roofline reader comes with the planning "
-                "layer's port (ROADMAP queue 1, 'Planning layer')")
         if name not in BENCHES:
             raise ValueError(f"unknown bench {name!r}; have "
                              f"{sorted(BENCHES)}")

@@ -14,8 +14,12 @@ Each has a grouped form over a list of leaves (`quantize_grouped`,
 one kernel launch for the whole list (one per input dtype), so an exchange
 or a K/V pair pays one launch, not one per leaf.  The single-tensor functions are a group of one.
 
-`impl="auto"` launches the CUDA kernels for CUDA tensors and runs the plain
-version (ref.py) for CPU tensors; `impl="ref"` forces the plain version.
+`impl="auto"` launches the CUDA kernels for CUDA tensors, runs the plain
+version (ref.py) for CPU tensors and returns empty outputs for meta
+tensors; `impl="ref"` forces the plain version.  An `impl="auto"` grouped
+call reports the kernel's work (dist/hardware.quant8_quantize_work /
+quant8_dequantize_work over its leaves) to an active cost walk
+(dist/cost.py), whatever the device.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.dist import cost, hardware
 from repro_torch.kernels.quant8.kernel import (dequantize_grouped_cuda,
                                                quantize_grouped_cuda)
 from repro_torch.kernels.quant8.ref import (dequantize_rows_grouped_ref,
@@ -33,13 +38,17 @@ BLOCK = 256
 IMPLS = ("auto", "ref")
 
 
+def _check(impl: str) -> str:
+    if impl not in IMPLS:
+        raise ValueError(f"impl {impl!r}; have {IMPLS}")
+    return impl
+
+
 def _plain(ts: Sequence[torch.Tensor], impl: str) -> bool:
     """The plain version for impl="ref" or when every tensor lies on the
     CPU; a list holding a CUDA tensor goes to the kernel (which raises on
     a mixed list)."""
-    if impl not in IMPLS:
-        raise ValueError(f"impl {impl!r}; have {IMPLS}")
-    return impl == "ref" or all(t.device.type == "cpu" for t in ts)
+    return _check(impl) == "ref" or all(t.device.type == "cpu" for t in ts)
 
 
 def quantize_rows_grouped(xs: Sequence[torch.Tensor], *, impl: str = "auto"):
@@ -47,6 +56,34 @@ def quantize_rows_grouped(xs: Sequence[torch.Tensor], *, impl: str = "auto"):
     (R_i, 1))]; one launch per input dtype (fp32, bf16; others go as
     fp32)."""
     xs = list(xs)
+    if _check(impl) == "ref":
+        return quantize_rows_grouped_ref(xs)
+    with cost.kernel_call("quant8_quantize", lambda: _sum_work(
+            hardware.quant8_quantize_work(
+                x.numel(), x.shape[0], x.dtype.itemsize
+                if x.dtype in (torch.float32, torch.bfloat16) else 4)
+            for x in xs)):
+        return _quantize_rows_grouped(xs, impl)
+
+
+def _sum_work(works):
+    flops, nbytes = {}, 0
+    for f, b in works:
+        for dt, v in f.items():
+            flops[dt] = flops.get(dt, 0) + v
+        nbytes += b
+    return flops, nbytes
+
+
+def _meta(ts) -> bool:
+    return any(t.device.type == "meta" for t in ts)
+
+
+def _quantize_rows_grouped(xs, impl):
+    if _meta(xs):
+        return [(torch.empty(x.shape, dtype=torch.int8, device="meta"),
+                 torch.empty((x.shape[0], 1), dtype=torch.float32,
+                             device="meta")) for x in xs]
     if _plain(xs, impl):
         return quantize_rows_grouped_ref(xs)
     xs = [(x if x.dtype in (torch.float32, torch.bfloat16) else x.float())
@@ -67,10 +104,20 @@ def dequantize_rows_grouped(qs: Sequence[torch.Tensor],
     """Leaves q_i (R_i, C_i) int8, s_i (R_i, 1) fp32 -> [(R_i, C_i) in
     out_dtype], one launch."""
     qs, ss = list(qs), list(ss)
-    if _plain(qs + ss, impl):
+    if _check(impl) == "ref":
         return dequantize_rows_grouped_ref(qs, ss, out_dtype)
-    return dequantize_grouped_cuda([q.contiguous() for q in qs],
-                                   [s.contiguous() for s in ss], out_dtype)
+    with cost.kernel_call("quant8_dequantize", lambda: _sum_work(
+            hardware.quant8_dequantize_work(q.numel(), q.shape[0],
+                                            out_dtype.itemsize)
+            for q in qs)):
+        if _meta(qs + ss):
+            return [torch.empty(q.shape, dtype=out_dtype, device="meta")
+                    for q in qs]
+        if _plain(qs + ss, impl):
+            return dequantize_rows_grouped_ref(qs, ss, out_dtype)
+        return dequantize_grouped_cuda([q.contiguous() for q in qs],
+                                       [s.contiguous() for s in ss],
+                                       out_dtype)
 
 
 def quantize_rows(x2: torch.Tensor, *, impl: str = "auto"):

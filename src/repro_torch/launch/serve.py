@@ -39,9 +39,20 @@ cross attention each), the SSM and RG-LRU scans on the linrec
 kernel (one launch per recurrent layer in prefill and in each decode
 step); the script prints the prefill and decode times and rates, the
 launches of each kernel in the prefill and per decode step, and on a card
-the peak device memory.  The reference's weight-layout policy
-(`--layout`, `pick_layout`) belongs to the planning layer; this launcher
-prints the cache spec it serves with in its place.
+the peak device memory.
+
+The weight layout and the cache spec come from the memory-aware policy
+(dist/policy.py) through `pick_layout` on the host mesh
+(launch/mesh.make_host_mesh): `--layout auto --cache auto` (the
+defaults) let it decide, `--layout <name>` / `--cache <spec>` force one.
+It prints `[serve] layout=... cache=... (peak ... GB/dev, headroom ...
+GB) -- reason`, and on a card the measured peak beside the predicted one.
+The fixed-batch path sizes the decision on the cache its prefill
+allocates (prompt + models/cache.PREFILL_DECODE_MARGIN positions), so the
+predicted cache bytes are the allocated ones (the reference sizes it on
+prompt + gen); the paged path on prompt + gen, as the reference's.
+On one card every layout places the same bytes: the decision picks the
+cache spec, and reports the layout.
 
 `--paged` (dense and MoE LMs without a sliding window) serves 2 x batch
 requests of `--prompt-len` random tokens through `PagedServeLoop` with
@@ -64,12 +75,16 @@ import torch
 
 from repro_torch import threefry
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.dist import policy as dist_policy
+from repro_torch.dist.sharding import SERVE_LAYOUTS
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.linrec.kernel import linrec_cuda
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.serve_loop import PagedServeLoop, Request
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import build_model
-from repro_torch.models.cache import CacheSpec
+from repro_torch.models.cache import PREFILL_DECODE_MARGIN, CacheSpec
+from repro_torch.models.config import ShapeConfig
 from repro_torch.models.param import init_params_on_device
 from repro_torch.runtime import resolve_device
 
@@ -93,6 +108,43 @@ def _since(before: dict) -> dict:
 
 def _show(counts: dict, per: int = 1) -> str:
     return ", ".join(f"{name} {n / per:g}" for name, n in counts.items())
+
+
+def pick_layout(model, mesh, *, batch: int, seq_len: int,
+                layout: str = "auto", cache: str = "auto", hw=None):
+    """Resolve the serve (weight layout, cache spec): the policy's
+    analytic product decision for "auto"/"auto", else the named layout
+    and/or CacheSpec (the full candidate table is still computed so the
+    caller can log headroom)."""
+    shape = ShapeConfig("serve", "decode", seq_len, batch)
+    decision = dist_policy.analytic_serve_decision(model, shape, mesh, hw=hw)
+    if cache != "auto" and model.supports_cache_spec:
+        cache = CacheSpec.parse(cache).name
+    if layout == "auto" and cache == "auto":
+        return decision
+    cands = [e for e in decision.evals
+             if (layout == "auto" or e.layout == layout)
+             and (cache == "auto" or e.cache == cache)
+             and not e.chunked]
+    if not cands:
+        # a spec outside the candidate table (e.g. "ring:2/int8"):
+        # evaluate the forced combination directly
+        cands = [dist_policy.analytic_eval(
+            model, shape, mesh,
+            layout if layout != "auto" else decision.layout,
+            cache_spec=None if cache == "auto" else cache, hw=hw)]
+    cap = decision.budget_bytes * decision.margin
+    fits = [e for e in cands if e.hbm_bytes <= cap]
+    best = min(fits or cands, key=lambda e: e.step_time_s)
+    if best.key != decision.key:
+        decision = dataclasses.replace(
+            decision, layout=best.layout, cache_spec=best.cache,
+            chunked=best.chunked, fits=bool(fits),
+            evals=decision.evals + tuple(
+                e for e in cands if e not in decision.evals),
+            reason=f"forced layout={layout} cache={cache} (policy "
+                   f"preferred {decision.key}: {decision.reason})")
+    return decision
 
 
 def make_batch(cfg, rng: np.random.Generator, B: int, T: int,
@@ -125,10 +177,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layout", default="auto",
+                    choices=["auto"] + sorted(SERVE_LAYOUTS))
     ap.add_argument("--cache", default="auto",
                     help="KV-cache spec 'layout[:shards]/dtype' (e.g. "
-                         "ring:4/int8, head/bf16); 'auto' keeps the "
-                         "config's (models/cache.py)")
+                         "ring:4/int8, head/bf16); 'auto' lets the "
+                         "policy pick (models/cache.py)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--paged", action="store_true",
                     help="serve through the block-table paged "
@@ -154,10 +208,16 @@ def serve_config(cfg, args: argparse.Namespace) -> dict:
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    if args.cache != "auto":
-        cfg = dataclasses.replace(cfg,
-                                  cache_spec=CacheSpec.parse(args.cache).name)
     model = build_model(cfg)
+    B, S = args.batch, args.prompt_len + (
+        args.gen if args.paged else PREFILL_DECODE_MARGIN)
+    decision = pick_layout(model, make_host_mesh(), batch=B, seq_len=S,
+                           layout=args.layout, cache=args.cache)
+    if (model.supports_cache_spec and decision.cache_spec
+            and decision.cache_spec != cfg.cache_spec):
+        # params are spec-independent: only the cache tree changes shape
+        cfg = dataclasses.replace(cfg, cache_spec=decision.cache_spec)
+        model = build_model(cfg)
     t0 = time.perf_counter()
     if args.smoke:
         params = model.init(threefry.key(args.seed), device)
@@ -173,9 +233,18 @@ def serve_config(cfg, args: argparse.Namespace) -> dict:
         cache_kind = f"{cfg.family} state"
     print(f"[serve] {cfg.name}: {model.n_params / 1e9:.2f} B params on "
           f"{device} (drawn in {t_init:.1f} s), cache {cache_kind}")
+    print(f"[serve] layout={decision.layout}"
+          + (f" cache={decision.cache_spec}" if decision.cache_spec else "")
+          + f" (peak {decision.chosen.hbm_bytes/1e9:.2f} GB/dev, "
+          f"headroom {decision.headroom_bytes()/1e9:.2f} GB) "
+          f"-- {decision.reason}")
 
     if args.paged:
-        return _serve_paged(args, model, params, device, t_init)
+        res = _serve_paged(args, model, params, device, t_init,
+                           decision.layout)
+        res["decision"] = decision
+        _peak_beside(device, decision)
+        return res
 
     prefill = make_prefill_step(model)
     decode = make_decode_step(model)
@@ -211,13 +280,15 @@ def serve_config(cfg, args: argparse.Namespace) -> dict:
           f"{B * (args.gen - 1) / max(t_dec, 1e-9):.0f} tok/s); kernel "
           f"launches per step {_show(dec_launches, steps)}")
     peak = _peak_gb(device)
+    _peak_beside(device, decision)
     print(f"[serve] sample generations (first 12 ids): "
           f"{toks[:, :12].tolist()}")
     return {"model": model, "params": params, "tokens": toks,
             "prefill_s": t_prefill,
             "decode_s": t_dec, "decode_steps": args.gen - 1,
             "launches": {"prefill": pre_launches, "decode": dec_launches},
-            "peak_gb": peak, "init_s": t_init}
+            "peak_gb": peak, "init_s": t_init, "decision": decision,
+            "cache": cache}
 
 
 def _peak_gb(device):
@@ -228,14 +299,24 @@ def _peak_gb(device):
     return peak
 
 
-def _serve_paged(args, model, params, device, t_init) -> dict:
+def _peak_beside(device, decision):
+    """On a card: the measured allocator peak beside the policy's."""
+    if device.type != "cuda":
+        return
+    peak = torch.cuda.max_memory_allocated(device)
+    print(f"[serve] peak measured {peak / 1e9:.2f} GB, predicted "
+          f"{decision.chosen.hbm_bytes / 1e9:.2f} GB ({decision.key})")
+
+
+def _serve_paged(args, model, params, device, t_init, layout) -> dict:
     """2 x batch requests through PagedServeLoop, drained tick by tick;
     the ticks that ran no prefill chunk are the decode ticks timed."""
     rng = np.random.default_rng(args.seed)
     B, T, bs = args.batch, args.prompt_len, args.block_size
     nb = args.num_blocks or -(-(B * (T + args.gen) + bs) // bs)
     loop = PagedServeLoop(model, params, max_batch=B, num_blocks=nb,
-                          block_size=bs, chunk=max(bs * 4, 32))
+                          block_size=bs, chunk=max(bs * 4, 32),
+                          layout=layout)
     for i in range(2 * B):   # oversubscribe: requests join mid-flight
         loop.submit(Request(rid=i, prompt=rng.integers(
             0, model.cfg.vocab_size, T).astype(np.int32), max_new=args.gen))

@@ -30,11 +30,18 @@ Two cache disciplines behind one Request/submit/tick API:
   greedy streams agree except where the two best logits nearly tie
   (tests/test_torch_paged.py).
 
-The reference's layout/mesh plumbing (`mesh=`, `layout=`, the policy's
-cache-spec choice) belongs to the planning layer and waits for it.
+Both loops take the reference's `mesh=` / `layout=`: with `mesh=` (an
+AbstractMesh or a DeviceMesh; launch/mesh.make_host_mesh() for the cards
+this process sees) and `layout="auto"` the memory-aware policy
+(dist/policy.py) scores the (weight layout x cache spec) product for the
+loop's shape, kept in `layout_decision`, and ServeLoop's
+`cache_spec=None` defers to the decision's cache spec; `layout=<name>`
+forces a layout.  The chosen rules and the mesh are ambient
+(dist/sharding.use_rules / use_mesh) while a step runs.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -56,12 +63,24 @@ class Request:
 
 
 class _ServeBase:
-    """Queue discipline and per-slot host state."""
+    """Layout/mesh plumbing, queue discipline and per-slot host state."""
 
-    def __init__(self, model, params, *, max_batch: int):
+    def __init__(self, model, params, *, max_batch: int, mesh=None,
+                 layout: str = "auto", shape=None):
         self.model = model
         self.params = params
         self.B = max_batch
+        self.layout_decision = None
+        self.rules = None
+        self.mesh = mesh
+        if layout != "auto":
+            from repro_torch.dist.sharding import serve_layout_rules
+            self.rules = serve_layout_rules(layout)
+        elif mesh is not None:
+            from repro_torch.dist import policy as dist_policy
+            self.layout_decision = dist_policy.analytic_serve_decision(
+                model, shape, mesh)
+            self.rules = self.layout_decision.rules
         self.device = leaves(params)[0].device
         self.live: dict[int, Request] = {}   # slot -> request
         self.free = list(range(max_batch))
@@ -73,6 +92,18 @@ class _ServeBase:
         self.lengths = np.zeros(max_batch, np.int32)
         self._next = torch.zeros(max_batch, dtype=torch.int32,
                                  device=self.device)
+
+    def _rules_ctx(self):
+        """The chosen layout's rules and the mesh, ambient while a step
+        runs (a plain context with neither)."""
+        stack = contextlib.ExitStack()
+        if self.rules is not None:
+            from repro_torch.dist.sharding import use_rules
+            stack.enter_context(use_rules(self.rules))
+        if self.mesh is not None:
+            from repro_torch.dist.sharding import use_mesh
+            stack.enter_context(use_mesh(self.mesh))
+        return stack
 
     def submit(self, req: Request):
         self.queue.append(req)
@@ -89,10 +120,12 @@ class _ServeBase:
 class ServeLoop(_ServeBase):
     """Contiguous per-slot cache (see module docstring).  `cache_spec`
     ("layout[:shards]/dtype", models/cache.py) forces the KV-cache spec;
-    None keeps the config's own."""
+    None defers to the layout policy's decision (when mesh= was given),
+    else keeps the config's own."""
 
     def __init__(self, model, params, *, max_batch: int = 4,
-                 max_len: int = 512, cache_spec: str | None = None):
+                 max_len: int = 512, mesh=None, layout: str = "auto",
+                 cache_spec: str | None = None):
         if model.cfg.family == "hybrid":
             raise NotImplementedError(
                 f"{model.cfg.name}: the hybrid family's nested cache is "
@@ -103,14 +136,21 @@ class ServeLoop(_ServeBase):
                 f"{model.cfg.name}: the enc-dec is served on the fixed-batch "
                 "path (launch/serve.py); the reference's ServeLoop cannot "
                 "serve it either (its prefill passes no frames)")
-        super().__init__(model, params, max_batch=max_batch)
-        if cache_spec and model.supports_cache_spec \
-                and cache_spec != model.cfg.cache_spec:
+        from repro_torch.models.config import ShapeConfig
+        super().__init__(model, params, max_batch=max_batch, mesh=mesh,
+                         layout=layout,
+                         shape=ShapeConfig("serve", "decode", max_len,
+                                           max_batch))
+        spec = cache_spec
+        if spec is None and self.layout_decision is not None:
+            spec = self.layout_decision.cache_spec or None
+        if spec and model.supports_cache_spec \
+                and spec != model.cfg.cache_spec:
             from repro_torch.models import build_model
             model = build_model(
-                dataclasses.replace(model.cfg, cache_spec=cache_spec))
+                dataclasses.replace(model.cfg, cache_spec=spec))
             self.model = model    # params are spec-independent
-        self.cache_spec = cache_spec
+        self.cache_spec = spec
         self.S = max_len
         self.cache = tree_map(
             lambda d: torch.zeros(d.shape, dtype=d.dtype,
@@ -129,7 +169,8 @@ class ServeLoop(_ServeBase):
             assert T < self.S, "prompt exceeds slot capacity"
             toks = torch.as_tensor(np.asarray(req.prompt, np.int32)[None],
                                    device=self.device)
-            nxt, pcache = self._prefill(self.params, {"tokens": toks})
+            with self._rules_ctx():
+                nxt, pcache = self._prefill(self.params, {"tokens": toks})
             self._write_slot(slot, pcache, T)
             self._next[slot] = nxt[0]
             self.lengths[slot] = T
@@ -164,10 +205,11 @@ class ServeLoop(_ServeBase):
             return []
         positions = torch.as_tensor(self.lengths.reshape(self.B, 1),
                                     device=self.device)
-        nxt, self.cache = self._decode(
-            self.params,
-            {"tokens": self._next[:, None], "positions": positions},
-            self.cache)
+        with self._rules_ctx():
+            nxt, self.cache = self._decode(
+                self.params,
+                {"tokens": self._next[:, None], "positions": positions},
+                self.cache)
         self.decode_steps += 1
         self._next = nxt.to(torch.int32)
         nxt_host = nxt.cpu().numpy()
@@ -200,7 +242,7 @@ class PagedServeLoop(_ServeBase):
 
     def __init__(self, model, params, *, max_batch: int = 4,
                  num_blocks: int = 64, block_size: int = 16,
-                 chunk: int = 64):
+                 chunk: int = 64, mesh=None, layout: str = "auto"):
         if not model.supports_paged_cache:
             raise ValueError(
                 f"{model.cfg.name}: paged serving needs a growing KV cache "
@@ -208,7 +250,12 @@ class PagedServeLoop(_ServeBase):
         if chunk % block_size:
             raise ValueError(f"chunk {chunk} must be a multiple of the "
                              f"block size {block_size}")
-        super().__init__(model, params, max_batch=max_batch)
+        from repro_torch.models.config import ShapeConfig
+        super().__init__(model, params, max_batch=max_batch, mesh=mesh,
+                         layout=layout,
+                         shape=ShapeConfig("serve", "decode",
+                                           num_blocks * block_size,
+                                           max_batch))
         self.alloc = BlockAllocator(num_blocks, block_size)
         self.bs = block_size
         self.nbmax = num_blocks            # a table can never exceed the pool
@@ -285,13 +332,14 @@ class PagedServeLoop(_ServeBase):
             toks[0, :c] = prompt[pos: pos + c]
             pv = np.full((1, cb), -1, np.int32)
             pv[0, :c] = np.arange(pos, pos + c, dtype=np.int32)
-            nxt, self.pages = self._chunk_prefill(
-                self.params, {"tokens": self._tensor(toks),
-                              "positions": self._tensor(pv),
-                              "block_tables": bt_row,
-                              "last_index": self._tensor(
-                                  np.array([c - 1], np.int32))},
-                self.pages)
+            with self._rules_ctx():
+                nxt, self.pages = self._chunk_prefill(
+                    self.params, {"tokens": self._tensor(toks),
+                                  "positions": self._tensor(pv),
+                                  "block_tables": bt_row,
+                                  "last_index": self._tensor(
+                                      np.array([c - 1], np.int32))},
+                    self.pages)
             self.chunk_steps += 1
             pos += c
         return int(nxt[0])
@@ -354,9 +402,10 @@ class PagedServeLoop(_ServeBase):
         bt, pos = self._tensor(self.bt), self._tensor(positions)
         cache = {**self.pages, "bt": bt.expand(L, *bt.shape),
                  "len": pos[:, 0].expand(L, self.B)}
-        nxt, _ = self._decode(
-            self.params, {"tokens": self._next[:, None], "positions": pos},
-            cache)
+        with self._rules_ctx():
+            nxt, _ = self._decode(
+                self.params,
+                {"tokens": self._next[:, None], "positions": pos}, cache)
         self.decode_steps += 1
         self._next = nxt.to(torch.int32)
         nxt_host = nxt.cpu().numpy()

@@ -41,7 +41,7 @@ def lm_loss(model, params, batch):
     gold = torch.where(iota == labels[..., None], lf, 0.0).sum(dim=-1)
     mask = torch.ones(labels.shape, dtype=torch.float32, device=lf.device)
     if cfg.frontend == "vision_stub":   # patch positions carry no labels
-        mask[:, :cfg.frontend_len] = 0.0
+        mask[:, :cfg.frontend_len].fill_(0.0)
     xent = ((lse - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     total = xent + 0.01 * aux
     return total, {"xent": xent,

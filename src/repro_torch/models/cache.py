@@ -8,14 +8,17 @@ A CacheSpec is `layout[:shards]/dtype`:
           into `shards` segments that decode merges by log-sum-exp
           (layers.ring_decode_attention); "paged" is the block pool
           (core/paging.py, `paged_attention_cache_defs`).
-  shards  ring only: the static segment count.  0 means the "model" mesh
-          axis in the reference; one device has no mesh, so "ring:0" is
+  shards  ring only: the static segment count.  0 means the ambient
+          mesh's "model" axis (dist/sharding.use_mesh); with no mesh,
           one segment.
   dtype   "bf16", or "int8": rowwise-quantised K/V with one fp32 scale per
           (token, head) over head_dim, on the port's quant8 kernels.
 
-The mesh-side pieces of the reference (`resolve`, `cache_bytes`) wait
-for the planning layer.
+Each leaf carries its logical axes (`kv_axes`), which the planning
+layer (dist/sharding.py, dist/policy.py) resolves against a mesh:
+`resolve` says when a spec degrades on a mesh, `cache_bytes` is what the
+serve policy scores, and `constrain_cache` re-asserts a spec's placement
+on an ambient mesh.
 
 Caches are written IN PLACE: `write_kv` updates the preallocated tensors
 of the cache it is given and returns a new dict around the same tensors,
@@ -80,13 +83,30 @@ def spec_of(cfg) -> CacheSpec:
     return CacheSpec.parse(getattr(cfg, "cache_spec", "auto"))
 
 
+def kv_axes(spec: CacheSpec):
+    """Logical axes of one (batch, seq, kv_heads, head_dim) cache leaf.
+
+    ring puts an EXPLICIT ("model",) tuple on the seq dim: explicit
+    tuples bind in resolution pass 0 (dist/sharding.py), so "model" is
+    claimed before the kv_heads priority wave can take it and the heads
+    dim falls back to replicated -- exactly the ring contract.
+    """
+    if spec.layout == "ring":
+        return ("batch", ("model",), "kv_heads", None)
+    if spec.layout == "replicated":
+        return ("batch", "kv_seq", None, None)
+    return ("batch", "kv_seq", "kv_heads", None)
+
+
 def ring_segments(spec: CacheSpec, seq_len: int) -> int:
     """Static ring segment count for a cache of `seq_len` slots: the
-    spec's shard count (1 when unset: one device has no "model" axis),
-    reduced to the largest power-of-two divisor of seq_len."""
+    spec's shard count (the ambient mesh's "model" size when unset, 1
+    with no mesh), reduced to the largest power-of-two divisor of
+    seq_len."""
     if spec.layout != "ring":
         return 1
-    n = spec.shards or 1
+    from repro_torch.dist.sharding import mesh_axis_size
+    n = spec.shards or mesh_axis_size("model")
     while n > 1 and seq_len % n:
         n //= 2
     return max(n, 1)
@@ -98,7 +118,7 @@ def attention_cache_defs(cfg, batch: int, seq_len: int,
     int8 adds per-(token, head) fp32 scales {k_scale, v_scale}."""
     spec = CacheSpec.parse(spec) if spec is not None else spec_of(cfg)
     keep = min(cfg.window, seq_len) if cfg.window else seq_len
-    ax = ("batch", "kv_seq", "kv_heads", None)
+    ax = kv_axes(spec)
     kv = (batch, keep, cfg.num_kv_heads, cfg.head_dim)
     kv_dtype = torch.int8 if spec.quantized else torch.bfloat16
     d = {
@@ -130,6 +150,53 @@ def paged_attention_cache_defs(cfg, batch, num_blocks, block_size,
                    dtype=torch.int32, init="zeros"),
         "len": pdef((batch,), ("batch",), dtype=torch.int32, init="zeros"),
     }
+
+
+def resolve(spec: CacheSpec | str, cfg, mesh) -> tuple[CacheSpec, str]:
+    """Effective spec on `mesh` + a note when the request degrades.
+
+    "head" with kv_heads %% model != 0 cannot head-shard; the resolver
+    reports it and callers offer "ring" as the candidate that always
+    divides.
+    """
+    from repro_torch.dist.sharding import mesh_sizes
+    spec = CacheSpec.parse(spec)
+    m = mesh_sizes(mesh).get("model", 1)
+    if spec.layout == "head" and m > 1 and cfg.num_kv_heads % m:
+        return spec, (f"kv_heads={cfg.num_kv_heads} % model={m} != 0: "
+                      f"head layout degrades to replicated ({m}-way "
+                      f"replication of the cache); use ring")
+    if spec.layout == "ring":
+        n = spec.shards or m
+        if n <= 1:
+            return spec, "ring with a 1-wide model axis == replicated"
+    return spec, ""
+
+
+def cache_bytes(cfg, batch: int, seq_len: int,
+                spec: CacheSpec | str | None, mesh, rules=None,
+                num_layers: int | None = None) -> float:
+    """Analytic per-device cache bytes for a spec on a mesh: the leaf
+    defs resolved through the sharding rules, summed over layers (the
+    number dist/policy.py scores (weight x cache) products with)."""
+    from repro_torch.dist.policy import sharded_bytes
+    per_layer = attention_cache_defs(cfg, batch, seq_len, spec)
+    L = num_layers if num_layers is not None else cfg.num_layers
+    return sharded_bytes(per_layer, mesh, rules) * L
+
+
+def constrain_cache(cache, spec: CacheSpec | str | None):
+    """Re-assert the spec's placement on cache leaves against the ambient
+    mesh (dist/sharding.constrain: a no-op without one).  The port's
+    model code does not call it per step (dist/sharding.py says why)."""
+    from repro_torch.dist.sharding import constrain
+    spec = CacheSpec.parse(spec) if spec is not None else CacheSpec()
+    ax = kv_axes(spec)
+    out = dict(cache)
+    for key in ("k", "v", "k_scale", "v_scale"):
+        if key in out:
+            out[key] = constrain(out[key], ax)
+    return out
 
 
 def quantize_kv(x, *, impl: str = "auto"):

@@ -598,6 +598,14 @@ def _moe_groups(B: int, T: int, min_tokens: int = 2048) -> int:
     return max(g, 1)
 
 
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """F.one_hot's int64 0/1 rows by a comparison: the same operations on
+    every device (F.one_hot checks its indices' range on the host for a
+    CPU tensor, scatters on a CUDA one and compares on meta), so a cost
+    walk (dist/cost.py) of an MoE step reads the same on all three."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def moe_route(probs, k: int, C: int):
     """The integer routing of one MoE layer.  probs: (G, ng, E) fp32 ->
     gval (G, ng, k) fp32, the chosen probabilities normalised to sum 1;
@@ -612,7 +620,7 @@ def moe_route(probs, k: int, C: int):
     srt = torch.sort(probs, dim=-1, descending=True, stable=True)
     gval, gidx = srt.values[..., :k], srt.indices[..., :k]
     gval = gval / gval.sum(-1, keepdim=True).clamp_min(1e-9)
-    onehot = F.one_hot(gidx, E)                            # (G, ng, k, E)
+    onehot = one_hot(gidx, E)                              # (G, ng, k, E)
     flat = onehot.transpose(1, 2).reshape(G, k * ng, E)
     pos_flat = flat.cumsum(1) - flat
     pos = pos_flat.reshape(G, k, ng, E).transpose(1, 2).gather(
@@ -691,7 +699,7 @@ def moe_apply(p, cfg, x):
     ye = moe_experts(p, cfg, moe_dispatch(xg, gidx, pos, keep, E, C))
     y = moe_combine(ye, gval, gidx, pos, keep, C)
     aux = _load_balance_loss(probs.reshape(B * T, E),
-                             F.one_hot(gidx, E).reshape(B * T, k, E), E, k)
+                             one_hot(gidx, E).reshape(B * T, k, E), E, k)
     return y.reshape(B, T, d), aux
 
 

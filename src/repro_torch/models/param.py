@@ -1,5 +1,9 @@
 """Parameter definitions: ParamDef trees with torch dtypes.
 
+From one definition tree come concrete params (`init_params`,
+`init_params_on_device`), meta params for the cost walk
+(`abstract_params`) and per-device bytes on a mesh (dist/policy.py).
+
 A model is described by a dict tree of ParamDef leaves (shape + dtype +
 logical axes + initializer), keyed exactly like the reference's
 (`repro.models.param`), so params move between the two packages leaf for
@@ -163,3 +167,16 @@ def to_numpy(tree):
 
 def count_params(defs) -> int:
     return int(sum(int(np.prod(d.shape)) for d in leaves(defs)))
+
+
+def param_bytes(defs) -> int:
+    return int(sum(int(np.prod(d.shape)) * d.dtype.itemsize
+                   for d in leaves(defs)))
+
+
+def abstract_params(defs):
+    """Meta tensors of each def's shape and dtype: no memory at any width,
+    which is what the cost walk (dist/cost.py) traces a full-width step
+    on, as the reference's ShapeDtypeStructs are what it lowers."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), defs)

@@ -1110,3 +1110,69 @@ def test_train_loop_q8_exchange_on_card(cuda):
     for leaf in leaves(res["params"]):
         assert leaf.device.type == "cuda"
         assert torch.equal(leaf[0], leaf[1])
+
+
+def _smoke_walks(model, kind, device):
+    """The cost walk (dist/cost.py) of one smoke step on `device`."""
+    from repro_torch import threefry
+    from repro_torch.dist import cost
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.param import abstract_params, init_params
+    from repro_torch.optim import adamw
+    shape = ShapeConfig("t", kind, 32, 2)
+    if device == "meta":
+        params = abstract_params(model.param_defs())
+        batch = abstract_params(model.input_defs(shape))
+    else:
+        params = init_params(threefry.key(0), model.param_defs(), device)
+        batch = {k: torch.zeros(d.shape, dtype=d.dtype, device=device)
+                 for k, d in model.input_defs(shape).items()}
+    if kind == "prefill":
+        return cost.analyze(make_prefill_step(model), params, batch)
+    opt = adamw(1e-3)
+    return cost.analyze(make_train_step(model, opt), params,
+                        opt.init(params), batch)
+
+
+@pytest.mark.parametrize("arch,kind", [("granite-20b", "prefill"),
+                                       ("falcon-mamba-7b", "prefill"),
+                                       ("qwen1.5-4b", "train")])
+def test_cost_walk_on_card_equals_meta(cuda, arch, kind):
+    """A smoke step walked on the card gives the meta walk's flops by
+    dtype, bytes and ops; the kernels report by formula on both."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.dist import cost
+    from repro_torch.models import build_model
+    model = build_model(get_smoke_config(arch))
+    card, meta = _smoke_walks(model, kind, cuda), \
+        _smoke_walks(model, kind, "meta")
+    assert card["out"] is not None and meta["out"] is not None
+    assert cost.totals(card) == cost.totals(meta)
+    if kind == "prefill":
+        assert any(not k.startswith("aten.") for k in card["by_op"])
+
+
+def test_pick_layout_on_the_cards_host_mesh(cuda):
+    """serve.pick_layout on the card's host mesh (one card: (1, 1)) for
+    the granite smoke config, forced and on auto, and serve.py's decision
+    against what it allocates."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    mesh = make_host_mesh()
+    assert mesh.shape == {"data": 1, "model": 1}
+    model = build_model(get_smoke_config("granite-20b"))
+    auto = serve.pick_layout(model, mesh, batch=4, seq_len=96)
+    assert auto.key == "stationary+head/bf16" and auto.fits
+    forced = serve.pick_layout(model, mesh, batch=4, seq_len=96,
+                               layout="fsdp", cache="head/int8")
+    assert forced.key == "fsdp+head/int8"
+    res = serve.main(["--gen", "3", "--batch", "2", "--prompt-len", "40",
+                      "--cache", "head/int8"])
+    assert res["decision"].key == "stationary+head/int8"
+    assert res["decision"].chosen.detail["cache_bytes"] == sum(
+        t.numel() * t.element_size() for t in leaves(res["cache"]))
+    assert res["decision"].chosen.detail["param_bytes"] == sum(
+        t.numel() * t.element_size() for t in leaves(res["params"]))

@@ -143,12 +143,14 @@ def test_run_passes_seed_and_device_to_every_bench(monkeypatch):
                                 "--device", "cpu"])
     assert calls == {n: {"seed": 5, "device": "cpu"}
                      for n in ("fig12", "fig18")}
-    assert set(trun.BENCHES) | {"roofline"} == \
+    assert set(trun.BENCHES) == \
         {l.split('"')[1] for l in Path(jrun.__file__).read_text()
          .splitlines() if l.strip().startswith('"') and ".main" in l}
-    with pytest.raises(NotImplementedError,
-                       match="queue 1, 'Planning layer'"):
-        trun.main(["--only", "fig12,roofline", "--device", "cpu"])
+    monkeypatch.undo()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        res = trun.main(["--only", "roofline", "--device", "cpu"])
+    assert out.getvalue().splitlines()[1] == "name,us_per_call,derived"
+    assert isinstance(res["roofline"][0], list)
     with pytest.raises(ValueError, match="unknown bench"):
         trun.main(["--only", "fig99", "--device", "cpu"])
 
