@@ -1,0 +1,27 @@
+"""The yardstick's arithmetic: the card's published peaks and the
+operations and bytes a step or a kernel needs, computed from shapes.
+
+Peaks: one NVIDIA H100 SXM (NVIDIA's data sheet, dense rates, at the full
+700 W power limit): 989 TFLOP/s bf16 on the tensor cores, 3.35 TB/s HBM3.
+"""
+from __future__ import annotations
+
+BF16_FLOPS = 989e12
+HBM_BYTES = 3.35e12
+
+
+def quant8_bytes(elements: int, rows: int) -> tuple[int, int]:
+    """(quantise, dequantise) bytes of a float32 tensor round trip with
+    one float32 scale a row: float32 in, int8 and scales out; and back."""
+    q = 4 * elements + elements + 4 * rows
+    dq = elements + 4 * rows + 4 * elements
+    return q, dq
+
+
+def train_flops_per_token(n_params: int, n_layers: int, d_model: int,
+                          seq: int) -> float:
+    """6 N (forward and backward of the matrix products, N without the
+    input embedding table) + 12 L d T (the attention products); remat's
+    recompute is not counted."""
+    return 6.0 * n_params + 12.0 * n_layers * d_model * seq
+
