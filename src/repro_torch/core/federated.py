@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import aggregation, compression
 from repro_torch.core.client import draw_orders
 from repro_torch.kernels.quant8 import ops as q8ops
@@ -93,25 +94,31 @@ def fl_aggregate_compressed(stacked_params, base_params, mixing, *,
     Quantise and dequantise run through kernels/quant8, each as ONE
     grouped call over all leaves (the reference computes the whole tree in
     one jitted step): on the card one launch each per exchange hop, on the
-    CPU or with impl="ref" their plain version."""
+    CPU or with impl="ref" their plain version.  Its spans
+    (`repro_torch.spans`), one each a hop: `exchange.delta` (casts,
+    subtract, top-k mask), `exchange.quantise`, `exchange.dequantise`,
+    `exchange.mix` (contraction, add, cast, unflatten)."""
     if mode == "none":
         return fl_aggregate(stacked_params, mixing)
     if mode not in compression.MODES:
         raise ValueError(f"unknown exchange compression mode '{mode}'")
     xs, bs = leaves(stacked_params), leaves(base_params)
-    deltas = [x.float() - b.float() for x, b in zip(xs, bs)]
-    if mode in ("topk", "q8_topk"):
-        # per-island top-k over the leaf (batch dim = island axis)
-        deltas = [torch.where(compression.topk_mask(d, k_frac=k_frac,
-                                                    batch_dims=1), d, 0.0)
-                  for d in deltas]
+    with spans.span("exchange.delta"):
+        deltas = [x.float() - b.float() for x, b in zip(xs, bs)]
+        if mode in ("topk", "q8_topk"):
+            # per-island top-k over the leaf (batch dim = island axis)
+            deltas = [torch.where(compression.topk_mask(
+                d, k_frac=k_frac, batch_dims=1), d, 0.0) for d in deltas]
     if mode in ("q8", "q8_topk"):
-        qs, ss = zip(*q8ops.quantize_rowwise_grouped(deltas, impl=impl))
-        deltas = q8ops.dequantize_rowwise_grouped(qs, ss, impl=impl)
-    m = torch.as_tensor(mixing, device=xs[0].device).float()
-    return unflatten_like(stacked_params, [
-        (b.float() + torch.tensordot(m, d, dims=1)).to(x.dtype)
-        for x, b, d in zip(xs, bs, deltas)])
+        with spans.span("exchange.quantise"):
+            qs, ss = zip(*q8ops.quantize_rowwise_grouped(deltas, impl=impl))
+        with spans.span("exchange.dequantise"):
+            deltas = q8ops.dequantize_rowwise_grouped(qs, ss, impl=impl)
+    with spans.span("exchange.mix"):
+        m = torch.as_tensor(mixing, device=xs[0].device).float()
+        return unflatten_like(stacked_params, [
+            (b.float() + torch.tensordot(m, d, dims=1)).to(x.dtype)
+            for x, b, d in zip(xs, bs, deltas)])
 
 
 def fl_aggregate_robust(stacked_params, method: str, *, base_params=None,

@@ -22,6 +22,7 @@ from functools import partial
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import federated
 from repro_torch.models.param import STACKED, LayerSlices
 from repro_torch.optim.optimizers import clip_scale, global_norm, moment_names
@@ -101,26 +102,38 @@ def grad_view(params):
 
 
 def make_train_step(model, optimizer, *, clip_norm: float = 1.0):
-    """One island's train step: (params, opt_state, batch) -> (params,
-    opt_state, metrics {loss, grad_norm, xent, aux}), params and state
-    updated in place.  With cfg.grad_accum > 1 the batch is split into
-    that many microbatches: fp32 gradients accumulated as g / accum, the
-    loss as loss / accum, the parts averaged, as the reference's scan."""
+    """One island's train step: (params, opt_state, batch, island=0) ->
+    (params, opt_state, metrics {loss, grad_norm, xent, aux}), params and
+    state updated in place.  With cfg.grad_accum > 1 the batch is split
+    into that many microbatches: fp32 gradients accumulated as g / accum,
+    the loss as loss / accum, the parts averaged, as the reference's scan.
+    Its spans (`repro_torch.spans`, tagged with `island`): `step.forward`
+    (the model and the loss) and `step.backward` (the gradients, remat's
+    recompute and a microbatch's accumulation included) a microbatch,
+    `step.optimizer` (norm, clip and update) once."""
     loss_fn = _loss_for(model)
     accum = max(1, model.cfg.grad_accum)
 
-    def grads_of(tree, flat, batch):
+    def grads_of(tree, flat, batch, island, acc=None):
+        """-> (loss, parts, grads); with `acc` (fp32 accumulators) the
+        gradients / accum are added into it, which is returned."""
         with torch.enable_grad():
-            loss, parts = loss_fn(model, tree, batch)
-            grads = torch.autograd.grad(loss, flat, allow_unused=True,
-                                        materialize_grads=True)
+            with spans.span("step.forward", island=island):
+                loss, parts = loss_fn(model, tree, batch)
+            with spans.span("step.backward", island=island):
+                grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                            materialize_grads=True)
+                if acc is not None:
+                    for a, g in zip(acc, grads):
+                        a.add_(g.float() / accum)
+                    grads = acc
         return loss.detach(), {k: v.detach() for k, v in parts.items()}, \
             list(grads)
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, *, island: int = 0):
         tree, flat = grad_view(params)
         if accum == 1:
-            loss, parts, grads = grads_of(tree, flat, batch)
+            loss, parts, grads = grads_of(tree, flat, batch, island)
         else:
             micro = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
                      for k, v in batch.items()}
@@ -129,20 +142,21 @@ def make_train_step(model, optimizer, *, clip_norm: float = 1.0):
                                  device=f.device) for f in flat]
             parts_all = []
             for j in range(accum):
-                l, parts, g = grads_of(tree, flat, {k: v[j] for k, v in
-                                                    micro.items()})
-                for acc, gj in zip(grads, g):
-                    acc.add_(gj.float() / accum)
-                del g
+                l, parts, grads = grads_of(
+                    tree, flat, {k: v[j] for k, v in micro.items()}, island,
+                    acc=grads)
                 loss = loss + l / accum
                 parts_all.append(parts)
             parts = {k: torch.stack([p[k] for p in parts_all]).mean()
                      for k in parts_all[0]}
         del tree, flat
-        grad_norm = global_norm(grads)
-        state_pieces = [pieces(opt_state[m]) for m in moment_names(opt_state)]
-        optimizer.step_(zip(pieces(params), grads, *state_pieces), opt_state,
-                        grad_scale=clip_scale(grad_norm, clip_norm))
+        with spans.span("step.optimizer", island=island):
+            grad_norm = global_norm(grads)
+            state_pieces = [pieces(opt_state[m])
+                            for m in moment_names(opt_state)]
+            optimizer.step_(zip(pieces(params), grads, *state_pieces),
+                            opt_state,
+                            grad_scale=clip_scale(grad_norm, clip_norm))
         metrics = {"loss": loss.float(), "grad_norm": grad_norm, **parts}
         return params, opt_state, metrics
 
@@ -160,7 +174,7 @@ def make_fl_train_step(model, optimizer, n_islands: int, **kw):
     def fl_step(params, opt_state, batch):
         ms = [step(federated.island_slice(params, i),
                    federated.island_slice(opt_state, i),
-                   {k: v[i] for k, v in batch.items()})[2]
+                   {k: v[i] for k, v in batch.items()}, island=i)[2]
               for i in range(n_islands)]
         return params, opt_state, {k: torch.stack([m[k] for m in ms])
                                    for k in ms[0]}

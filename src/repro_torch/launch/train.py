@@ -30,6 +30,17 @@ freshly drawn initial params, from which its next compressed delta and
 its Byzantine attacks are then taken, so that its resumed run leaves the
 uninterrupted one.  The island clock, which no checkpoint holds, starts
 empty after a resume in both packages.
+
+The loop's spans (`repro_torch.spans`, tagged with `step` and `round`):
+`train.step` (the batch through the step's synchronise: what `step_ms`
+times), `train.batch` inside it, `train.exchange` (selection, the wire's
+faults, every route, the base copy) and `train.base_copy` inside it; the
+step's and the exchange's own are in `launch/steps.py` and
+`core/federated.py`.  `--trace` turns them on and prints at each
+round's end, after its exchange, one `[trace] round=... <span>=<ms>ms
+...` line of the round's summed stream times (`spans.spans()`: one
+synchronise a round, which keeps the exchange's tail out of the next
+step's `step_ms`).
 """
 from __future__ import annotations
 
@@ -39,7 +50,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import threefry
+from repro_torch import spans, threefry
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import aggregation
@@ -54,6 +65,11 @@ from repro_torch.models.param import init_params_on_device
 from repro_torch.optim import adamw, cosine_warmup
 from repro_torch.runtime import resolve_device, synchronize
 from repro_torch.tree import tree_map
+
+#: the spans a `--trace` line sums, in its order
+TRACE_LINE = ("step.forward", "step.backward", "step.optimizer",
+              "exchange.delta", "exchange.quantise", "exchange.dequantise",
+              "exchange.mix", "train.base_copy", "train.exchange")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -98,11 +114,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--trim-frac", type=float, default=0.2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace", action="store_true",
+                    help="record the loop's spans and print a [trace] line "
+                         "of their stream times each round")
     return ap.parse_args(argv)
 
 
 def _copy(tree):
     return tree_map(torch.clone, tree)
+
+
+def trace_line(rnd: int, recorded) -> str:
+    """`[trace] round=<rnd> <span>=<ms>ms ...`: each TRACE_LINE span's
+    summed stream time over `recorded` (those with none left out)."""
+    tot: dict = {}
+    for sp in recorded:
+        tot[sp.name] = tot.get(sp.name, 0.0) + sp.ms
+    return " ".join([f"[trace] round={rnd}"] + [
+        f"{n}={tot[n]:.2f}ms" for n in TRACE_LINE if n in tot])
 
 
 def main(argv=None, *, cfg=None) -> dict:
@@ -111,6 +140,8 @@ def main(argv=None, *, cfg=None) -> dict:
     "metrics" (the last step's, as floats), "start"}."""
     args = parse_args(argv)
     device = resolve_device(args.device)
+    if args.trace:
+        spans.enable()
     if cfg is None:
         cfg = get_smoke_config(args.arch) if args.smoke \
             else get_config(args.arch)
@@ -245,38 +276,49 @@ def main(argv=None, *, cfg=None) -> dict:
     metrics = {}
     pending = None   # (mixed, snapshot) while an overlapped exchange flies
     for s in range(start, args.steps):
-        t0 = time.time()
-        params, opt_state, metrics = step(params, opt_state, batch_at(s))
-        tag = "local"
-        if pending is not None:
-            # round r's exchange ran from the snapshot while this step ran:
-            # fold its correction in without recomputing the step
-            mixed, snap = pending
-            params = fed.fl_overlap_merge(params, mixed, snap)
-            base_params = mixed
-            pending = None
-            tag = "local+merge"
-        synchronize(device)
-        dt = time.time() - t0
+        rnd = s // args.local_steps + 1
+        spans.set_context(step=s + 1, round=rnd)
+        t0 = time.perf_counter()
+        with spans.span("train.step"):
+            with spans.span("train.batch"):
+                batch = batch_at(s)
+            params, opt_state, metrics = step(params, opt_state, batch)
+            tag = "local"
+            if pending is not None:
+                # round r's exchange ran from the snapshot while this step
+                # ran: fold its correction in without recomputing the step
+                mixed, snap = pending
+                params = fed.fl_overlap_merge(params, mixed, snap)
+                base_params = mixed
+                pending = None
+                tag = "local+merge"
+            synchronize(device)
+        dt = time.perf_counter() - t0
         clock.observe(np.full(P, dt))  # per-island step times (uniform)
         loss = metrics["loss"].cpu().numpy().mean()
-        if (s + 1) % args.local_steps == 0 and P > 1:
-            sel = clock.selection(args.straggler_slack)
-            ex_in, ok = exchange_input(params, (s + 1) // args.local_steps)
-            if args.robust_agg != "none":
-                mixed, tag = robust_exchange(ex_in, ok)
-            else:
-                mixed, tag = dispatch_exchange(ex_in, sel * ok)
-            if mixed is None:
-                pass
-            elif args.overlap and s + 1 < args.steps:
-                pending = (mixed, _copy(params))   # merge after next step
-                tag += "+overlap"
-            else:
-                params = mixed
-                base_params = _copy(mixed)
+        round_end = (s + 1) % args.local_steps == 0
+        if round_end and P > 1:
+            with spans.span("train.exchange"):
+                sel = clock.selection(args.straggler_slack)
+                ex_in, ok = exchange_input(params, rnd)
+                if args.robust_agg != "none":
+                    mixed, tag = robust_exchange(ex_in, ok)
+                else:
+                    mixed, tag = dispatch_exchange(ex_in, sel * ok)
+                if mixed is None:
+                    pass
+                elif args.overlap and s + 1 < args.steps:
+                    pending = (mixed, _copy(params))  # merge after next step
+                    tag += "+overlap"
+                else:
+                    params = mixed
+                    with spans.span("train.base_copy"):
+                        base_params = _copy(mixed)
         print(f"[train] step={s+1} loss={loss:.4f} {dt*1e3:.0f}ms {tag}",
               flush=True)
+        if args.trace and round_end:
+            print(trace_line(rnd, spans.spans()), flush=True)
+            spans.reset()
         losses.append(float(loss))
         step_ms.append(dt * 1e3)
         tags.append(tag)
@@ -285,6 +327,9 @@ def main(argv=None, *, cfg=None) -> dict:
                      extra={"arch": args.arch, "islands": P})
             print(f"[train] checkpoint @ {s+1}")
     print("[train] done")
+    spans.set_context()
+    if args.trace:
+        spans.disable()
     return {"params": params, "opt_state": opt_state, "losses": losses,
             "step_ms": step_ms, "tags": tags, "start": start,
             "metrics": {k: v.cpu().numpy().tolist()
