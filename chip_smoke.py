@@ -6,7 +6,8 @@
 Phases, in order; any failure exits non-zero and nothing is caught:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from src/repro_torch/kernels/*/csrc, one nvcc
-     per source, all started together;
+     per library (the training library once per head dim it holds, 64
+     and 128), all started together;
   3. hold fed_agg against its plain version, bit for bit, over K x N x
      dtype as groups of one leaf, with its time, the plain version's, one
      torch.einsum call's (a yardstick the port never calls) and the least
@@ -93,6 +94,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      scaled_dot_product_attention call (a yardstick the port never calls;
      a window the prompt passes as a boolean mask over K/V repeated to
      every head);
+  10b. hold the training kernels (flash_attention_train: the forward with
+     its row log-sum-exp, the backward) against torch.autograd of
+     attention_full in fp32 and ref.py's blockwise backward over
+     FA_TRAIN_SHAPES (the benchmark cell's 8 x 1,024 x 20 heads of 128,
+     phase 25's microbatch, GQA under a window, non-causal, D = 96 and an
+     odd T at D = 64), their forward's o equal to the prefill kernel's and
+     two backwards equal, bit for bit; time both at the cell's shape beside
+     their bounds, attention_full's forward and backward and
+     scaled_dot_product_attention's (a yardstick);
   (a) the hardware model (dist/hardware.py) against the card: a bf16
      torch.matmul at 8,192^3 and a 4 GB device-to-device copy in
      CUDA-graph time, neither above its constant (989 TFLOP/s, 3.35
@@ -224,11 +234,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      both flight CNNs, and with grad_accum = 2 and with remat on for
      qwen1.5-4b and falcon-mamba-7b: metrics, moments and params held to
      train_gap.TOL (the tolerances tests/test_torch_train.py holds the
-     CPU to against JAX), no flash_attention, linrec or quant8 launch;
+     CPU to against JAX), no flash_attention (prefill or training: the
+     smoke heads are below the training kernels'), linrec or quant8
+     launch;
   25. qwen1.5-4b trained at full width, whole (3.95 B params, 40 layers,
      grad_accum 4, remat on): `python -m repro_torch.launch.train --arch
      qwen1.5-4b --full --islands 1 --steps 3 --batch 4 --seq 1024`
-     through its main, 3 finite steps, no kernel launch, each step's time,
+     through its main, 3 finite steps, every gradient-carrying attention
+     call on the training kernels (960 forwards under remat, 480
+     backwards) and no other kernel launch, each step's time,
      tokens/s and share of the dense bf16 peak (6 N tokens) and the peak
      memory printed; adamw's in-place update on the card against the
      CPU's for the middle layer's slice of each stacked leaf (moments 1e-6
@@ -241,17 +255,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      q8 through 2 fog cells with --overlap, and q8-topk with half the
      islands Byzantine folded by trimmed mean: quant8 launches by hop (2 +
      2, 4 + 4 and 4 + 4), each call bit-equal to the plain version, the
-     reference's tags, the islands agreeing after the last exchange; then
+     reference's tags, the islands agreeing after the last exchange, every
+     attention call on the training kernels and none plain; then
      the q8 run killed after step 2 and resumed from its checkpoint, its
      params and adamw state equal to the uninterrupted run's bit for bit
      under torch.use_deterministic_algorithms; before it, (d) the cost
      walk of phase 25's train step (4 x 1,024, grad_accum 4, remat) on
-     the card and on meta, as for the prefill (both walks written to
+     the card (its attention on the training kernels, by formula) and on
+     meta (the plain route), printed apart (both walks written to
      artifacts/cost_walk_card.json for examples/gen_experiments.py);
   27. print the kernel table as JSON (flash_attention's and linrec's
-     launches by path, the training paths' among them, 0; quant8's train
-     exchange launches; (e) phase (c)'s launches by path), then the
-     result line.
+     launches by path, the training paths' among them, 0; the training
+     kernels' launches by path; quant8's train exchange launches; (e)
+     phase (c)'s launches by path), then the result line.
 
 Each model is freed before the next one is drawn (40.6 GB of weights
 for phases 11-12 and again for 13-15, then 14.6, 20.9, 40.9, 41.7, 7.6
@@ -280,6 +296,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # bound column and the cost walk (dist/hardware.py; numpy only)
 from repro_torch.dist.hardware import (  # noqa: E402
     BF16_FLOPS_PER_S, DEVICE_HBM_BYTES, HBM_BYTES_PER_S, fed_agg_work,
+    flash_attention_train_bwd_work, flash_attention_train_fwd_work,
     flash_attention_work, linrec_work, quant8_dequantize_work,
     quant8_quantize_work, work_bound)
 
@@ -384,6 +401,18 @@ FA_SWEEP = [(2, 256, 4, 4, 64, 0, True), (2, 256, 4, 2, 64, 0, True),
 FA_STRIDED = [(128, 8, "wgmma"), (64, 1, "mma"), (200, 1, "fma"),
               (96, 1, "mma")]
 FA_TOL = {"float32": 3e-4, "bfloat16": 3e-2}    # tests/test_kernels.py
+# the training kernels (phase 10b), as tests/test_torch_cuda.py's
+# TRAIN_SHAPES: (B, T, H, Hkv, D, window, causal), the first the
+# benchmark cell's (qwen1.5-4b, 8 x 1,024), which is timed; o, dq, dk and
+# dv within FA_TRAIN_TOL of the largest entry of attention_full's autograd
+# in fp32 and of ref.py's blockwise backward (bf16 outputs; the card read
+# 1.9e-3 to 3.8e-3: PERF.md section 6), o + o_lo within 1e-4 of the fp32
+# output
+FA_TRAIN_SHAPES = [(8, 1024, 20, 20, 128, 0, True),
+                   (1, 1024, 20, 20, 128, 0, True),
+                   (2, 333, 8, 2, 64, 100, True), (1, 300, 4, 4, 128, 0, False),
+                   (1, 520, 8, 2, 96, 0, True), (2, 77, 4, 2, 64, 0, True)]
+FA_TRAIN_TOL = 1e-2
 LM_ARCH = "granite-20b"
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 32
 FA_MAIN = (LM_BATCH, LM_PROMPT, 48, 1, 128)     # its prefill attention
@@ -472,11 +501,13 @@ TRAIN_EXTRA_ARCHS = ("qwen1.5-4b", "falcon-mamba-7b")
 TRAIN_ARCH = "qwen1.5-4b"
 TRAIN_FULL = ["--arch", TRAIN_ARCH, "--full", "--islands", "1", "--steps",
               "3", "--batch", "4", "--seq", "1024"]
-# its first step's train-route loss (attention_full, P in bf16) against
-# the same batch's loss with no gradient (the serving route: the
-# flash_attention kernel, P in fp32), relative; near the geometric mean of
-# the card's reading of that gap, 2.14e-5, and a fault planted in the
-# train route (each query sees one key ahead), 1.82e-3.  A one-ulp nudge
+# its first step's train-route loss against the same batch's loss with no
+# gradient (the serving route: the flash_attention kernel, P in fp32),
+# relative; near the geometric mean of the card's reading of that gap when
+# the train route was attention_full (P in bf16), 2.14e-5, and a fault
+# planted in the train route (each query sees one key ahead), 1.82e-3.
+# The train route's forward is now the training kernels', whose o equals
+# the prefill kernel's bit for bit, so the gap is what else differs.  A one-ulp nudge
 # of every param reads 2.57e-4 and a loss mask one position longer
 # 1.93e-5: at 4 x 1,024 positions one position is lost in the mean
 # (PERF.md section 6; phase 25 prints all four)
@@ -1114,6 +1145,122 @@ def flash_sweep(torch):
               f"it), max |diff| {err:.3g}", flush=True)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
+    return recs
+
+
+def flash_train_sweep(torch) -> dict:
+    """Phase 10b: the training kernels (flash_attention_train) over
+    FA_TRAIN_SHAPES: o, dq, dk and dv against torch.autograd of
+    attention_full in fp32 on the same bf16 values and against ref.py's
+    blockwise backward, o + o_lo against the fp32 output, the lse against
+    the plain one; the forward's o equal to the prefill kernel's bit for bit
+    and a second backward equal to the first.  Then the first shape (the
+    benchmark cell's) timed: the forward with its lse and the backward
+    beside their bounds, the prefill forward, attention_full's forward and
+    backward (the plain version) and scaled_dot_product_attention's
+    (a yardstick only).  -> the records."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.models.layers import attention_full
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def rel(a, b):
+        a, b = a.detach().float(), b.detach().float()
+        return float((a - b).abs().max() / b.abs().max())
+
+    def draw(B, T, H, Hkv, D):
+        return ((torch.randn(B, T, H, D, generator=g, device="cuda") * 0.5
+                 ).bfloat16(),
+                (torch.randn(B, T, Hkv, D, generator=g, device="cuda") * 0.5
+                 ).bfloat16(),
+                torch.randn(B, T, Hkv, D, generator=g, device="cuda"
+                            ).bfloat16(),
+                torch.randn(B, T, H, D, generator=g, device="cuda"
+                            ).bfloat16())
+
+    recs = {"shapes": {}}
+    for shape in FA_TRAIN_SHAPES:
+        B, T, H, Hkv, D, window, causal = shape
+        q, k, v, do = draw(B, T, H, Hkv, D)
+        kw = {"causal": causal, "window": window}
+        check(fa.takes_grad(q, k, v), f"flash train {shape}: not taken")
+        o, o_lo, lse = fa.flash_attention_train_fwd_cuda(q, k, v, **kw)
+        grads = fa.flash_attention_train_bwd_cuda(q, k, v, o, o_lo, lse, do,
+                                                  **kw)
+        again = fa.flash_attention_train_bwd_cuda(q, k, v, o, o_lo, lse, do,
+                                                  **kw)
+        same_o = bool(torch.equal(o, fa.flash_attention_cuda(q, k, v, **kw)))
+        same = all(bool(torch.equal(a, b)) for a, b in zip(grads, again))
+        ins = [t.float().requires_grad_(True) for t in (q, k, v)]
+        out = attention_full(*ins, **kw)
+        want = torch.autograd.grad(out, ins, do.float())
+        bhtd = [t.transpose(1, 2) for t in (q, k, v)]
+        of, lse_ref = ref.attention_lse_ref(*bhtd, **kw)
+        blockwise = ref.attention_bwd_ref(
+            *bhtd, (o.float() + o_lo.float()).transpose(1, 2), lse[..., :T],
+            do.transpose(1, 2), **kw)
+        rec = {"o": rel(o, out),
+               "o_fp32": rel(o.float() + o_lo.float(), of.transpose(1, 2)),
+               "lse_abs": float((lse[..., :T] - lse_ref).abs().max()),
+               "vs_attention_full": [rel(a, b) for a, b in zip(grads, want)],
+               "vs_blockwise": [rel(a, b.transpose(1, 2))
+                                for a, b in zip(grads, blockwise)],
+               "same_bits": same, "o_equals_prefill": same_o}
+        worst = max(rec["o"], *rec["vs_attention_full"],
+                    *rec["vs_blockwise"])
+        check(worst <= FA_TRAIN_TOL and rec["o_fp32"] <= 1e-4
+              and rec["lse_abs"] <= 1e-4 and same and same_o,
+              f"flash train {shape}: {rec}")
+        print(f"flash_attention_train B={B} T={T} H={H} Hkv={Hkv} D={D} "
+              f"window={window} causal={causal}: o {rec['o']:.3g}, dq dk dv "
+              f"vs attention_full fp32 "
+              f"{[round(x, 6) for x in rec['vs_attention_full']]}, vs the "
+              f"blockwise ref {[round(x, 6) for x in rec['vs_blockwise']]} "
+              f"(tol {FA_TRAIN_TOL}), o + o_lo {rec['o_fp32']:.3g}, lse "
+              f"{rec['lse_abs']:.3g}, two backwards equal {same}, o equal to "
+              f"the prefill kernel's {same_o}", flush=True)
+        recs["shapes"]["x".join(map(str, shape))] = rec
+        del q, k, v, do, o, o_lo, lse, grads, again, ins, out, want
+        torch.cuda.empty_cache()
+    B, T, H, Hkv, D, window, causal = FA_TRAIN_SHAPES[0]
+    q, k, v, do = draw(B, T, H, Hkv, D)
+    o, o_lo, lse = fa.flash_attention_train_fwd_cuda(q, k, v)
+    fwd_ms = graph_ms(torch, lambda: fa.flash_attention_train_fwd_cuda(
+        q, k, v), 10)
+    prefill_ms = graph_ms(torch, lambda: fa.flash_attention_cuda(q, k, v), 10)
+    bwd_ms = graph_ms(torch, lambda: fa.flash_attention_train_bwd_cuda(
+        q, k, v, o, o_lo, lse, do), 10)
+    ins = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def plain():
+        torch.autograd.grad(attention_full(*ins), ins, do)
+
+    def sdpa():
+        out = F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in ins), is_causal=True)
+        torch.autograd.grad(out, ins, do.transpose(1, 2))
+    plain_ms = eager_ms(torch, plain, 5)
+    lib_ms = eager_ms(torch, sdpa, 20)
+    fw = flash_attention_train_fwd_work(B, T, H, Hkv, D, window, causal,
+                                        q.dtype)
+    bw = flash_attention_train_bwd_work(B, T, H, Hkv, D, window, causal,
+                                        q.dtype)
+    (fwd_b, fwd_by), (bwd_b, bwd_by) = work_bound(fw), work_bound(bw)
+    bflops = bw[0]["bfloat16"]
+    recs.update({"ms": bwd_ms, "fwd_ms": fwd_ms, "prefill_ms": prefill_ms,
+                 "bound_ms": bwd_b, "bound_by": bwd_by, "fwd_bound_ms": fwd_b,
+                 "plain_ms": plain_ms, "library_ms": lib_ms})
+    print(f"flash_attention_train at the cell's shape B={B} T={T} H={H} "
+          f"Hkv={Hkv} D={D} causal: forward with lse {fwd_ms:.4f} ms (the "
+          f"prefill forward {prefill_ms:.4f}; bound {fwd_b:.4f}, {fwd_by}), "
+          f"backward {bwd_ms:.4f} ms ({bflops / bwd_ms / 1e9:.1f} TFLOP/s of "
+          f"{bflops:.4g} FLOPs; bound {bwd_b:.4f} ms, {bwd_by}, "
+          f"{bwd_b / bwd_ms:.2%} of it); attention_full forward + backward "
+          f"{plain_ms:.3f} ms, sdpa forward + backward {lib_ms:.4f} ms "
+          f"(yardstick)", flush=True)
+    del q, k, v, do, o, o_lo, lse, ins
+    torch.cuda.empty_cache()
     return recs
 
 
@@ -2034,33 +2181,51 @@ def scenarios_path(torch, card: str) -> int:
 
 
 def train_kernel_counts() -> dict:
-    """Launches of every kernel a train step must not reach and of the
-    exchange's quant8, read now."""
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_cuda
+    """Launches of the kernels a train step must not reach (the prefill
+    flash_attention, linrec), of the training kernels and of the
+    exchange's quant8, and the gradient-carrying attention calls that took
+    the plain route, read now."""
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.linrec.kernel import linrec_cuda
     from repro_torch.kernels.quant8 import kernel as q8
-    return {"flash_attention": flash_attention_cuda.launches,
+    from repro_torch.models.layers import select_attention
+    return {"flash_attention": fa.flash_attention_cuda.launches,
             "linrec": linrec_cuda.launches,
             "quantize": q8.quantize_grouped_cuda.launches,
-            "dequantize": q8.dequantize_grouped_cuda.launches}
+            "dequantize": q8.dequantize_grouped_cuda.launches,
+            "train_fwd": fa.flash_attention_train_fwd_cuda.launches,
+            "train_bwd": fa.flash_attention_train_bwd_cuda.launches,
+            "plain_grad": select_attention.grad_routes["plain"]}
 
 
 def zero_train_counts():
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_cuda
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.linrec.kernel import linrec_cuda
     from repro_torch.kernels.quant8 import kernel as q8
-    for fn in (flash_attention_cuda, linrec_cuda, q8.quantize_grouped_cuda,
-               q8.dequantize_grouped_cuda):
+    from repro_torch.models.layers import select_attention
+    for fn in (fa.flash_attention_cuda, linrec_cuda,
+               q8.quantize_grouped_cuda, q8.dequantize_grouped_cuda,
+               fa.flash_attention_train_fwd_cuda,
+               fa.flash_attention_train_bwd_cuda):
         fn.launches = 0
+    select_attention.grad_routes.update(kernel=0, plain=0)
+
+
+def train_attention_launches(cfg, steps: int, islands: int = 1) -> dict:
+    """The training kernels' launches `steps` train steps of `islands`
+    islands make: per microbatch and attention layer one backward and one
+    forward, two under remat (its recompute)."""
+    bwd = steps * islands * cfg.grad_accum * cfg.num_layers
+    return {"train_fwd": bwd * (2 if cfg.remat else 1), "train_bwd": bwd}
 
 
 def train_smoke(torch) -> dict:
     """Phase 24: every smoke arch's train step on the card against the
     same step on the CPU (train_gap.run_steps: the same params, drawn from
     the Threefry key of seed 0, and batch), held to train_gap.TOL; counted
-    from zero: no flash_attention, linrec or quant8 launch."""
+    from zero: no flash_attention (prefill or training: the smoke heads of
+    8 to 16 are below what the training kernels take), linrec or quant8
+    launch."""
     import dataclasses
     from repro_torch import threefry
     from repro_torch.configs import get_smoke_config, list_archs
@@ -2097,6 +2262,7 @@ def train_smoke(torch) -> dict:
         print(f"train step {label} (2 steps, card vs CPU): "
               + ", ".join(f"{k} {v:.3g}" for k, v in g.items()), flush=True)
     launches = train_kernel_counts()
+    launches.pop("plain_grad")
     check(launches == dict.fromkeys(launches, 0),
           f"smoke train steps launched {launches}; none expected (the "
           "gradient routes are plain)")
@@ -2112,7 +2278,8 @@ def step_loss(torch, model, params, batch, accum: int, *,
     """The train step's loss (the mean of `accum` microbatch losses) on
     the serving route (no gradient: flash_attention) or, with `grad`, on
     the train route (every param a leaf that requires grad, as the train
-    step makes them, so attention takes attention_full; no backward)."""
+    step makes them, so attention takes flash_attention_train's forward;
+    no backward)."""
     from repro_torch.launch import steps
     total = torch.zeros((), device="cuda")
     tree = steps.grad_view(params)[0] if grad else params
@@ -2127,20 +2294,21 @@ def step_loss(torch, model, params, batch, accum: int, *,
 
 @contextlib.contextmanager
 def future_leak():
-    """A planted fault in the train route: every causal attention_full
-    call lets each query see one key past its own position."""
+    """A planted fault in the train route: every causal attention call
+    lets each query see one key past its own position (a query offset of
+    one, which the plain route takes)."""
     from repro_torch.models import layers
-    orig = layers.attention_full
+    orig = layers.select_attention
 
-    def leaky(q, k, v, *, causal=True, window=0, q_offset=0):
+    def leaky(q, k, v, *, causal=True, window=0, q_offset=0, impl="auto"):
         return orig(q, k, v, causal=causal, window=window,
-                    q_offset=q_offset + 1 if causal else q_offset)
+                    q_offset=q_offset + 1 if causal else q_offset, impl=impl)
 
-    layers.attention_full = leaky
+    layers.select_attention = leaky
     try:
         yield
     finally:
-        layers.attention_full = orig
+        layers.select_attention = orig
 
 
 def adamw_slice_check(torch, params, opt_state, lr_fn) -> dict:
@@ -2184,7 +2352,8 @@ def adamw_slice_check(torch, params, opt_state, lr_fn) -> dict:
 
 def train_full(torch, card: str) -> dict:
     """Phase 25: qwen1.5-4b at full width, whole, through launch/train.py's
-    main (3 steps, grad_accum 4, remat), counted from zero; the step time,
+    main (3 steps, grad_accum 4, remat), counted from zero (every
+    gradient-carrying attention call on the training kernels); the step time,
     tokens/s, share of the dense bf16 peak (6 N tokens), peak memory; the
     adamw update against the CPU's; the first step's train-route loss
     against the serving route's on the same batch, beside the train
@@ -2211,8 +2380,11 @@ def train_full(torch, card: str) -> dict:
     wall = time.perf_counter() - t0
     launches = train_kernel_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    check(launches == dict.fromkeys(launches, 0),
-          f"train.py --full {TRAIN_ARCH}: launches {launches}, none expected")
+    want = {**dict.fromkeys(launches, 0),
+            **train_attention_launches(cfg, args.steps)}
+    check(launches == want,
+          f"train.py --full {TRAIN_ARCH}: launches {launches}, expected "
+          f"{want}")
     check(len(res["losses"]) == args.steps
           and all(np.isfinite(res["losses"])),
           f"train.py --full {TRAIN_ARCH}: losses {res['losses']}")
@@ -2260,7 +2432,7 @@ def train_full(torch, card: str) -> dict:
     readings["nudge"] = step_loss(torch, model, params, batch,
                                   cfg.grad_accum, grad=True)
     check(train_kernel_counts()["flash_attention"] == before + n_flash,
-          "a train-route loss launched flash_attention")
+          "a train-route loss launched the prefill flash_attention")
     del params
     torch.cuda.empty_cache()
     rel = {k: abs(v - served) / abs(served) for k, v in readings.items()}
@@ -2309,6 +2481,7 @@ def train_fl(torch, card: str) -> dict:
     cfg = dataclasses.replace(get_config(TRAIN_ARCH),
                               num_layers=TRAIN_FL_LAYERS)
     n_params = build_model(cfg).n_params
+    steps = train.parse_args(TRAIN_FL).steps
     # cuBLAS refuses deterministic mode without a fixed workspace setting
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.use_deterministic_algorithms(True)
@@ -2325,10 +2498,14 @@ def train_fl(torch, card: str) -> dict:
             wall = time.perf_counter() - t0
             n = train_kernel_counts()
             peak = torch.cuda.max_memory_allocated() / 1e9
+            want_fa = train_attention_launches(cfg, steps, islands=2)
             check((n["quantize"], n["dequantize"]) == want_q8
-                  and n["flash_attention"] == n["linrec"] == 0,
-                  f"train loop {name}: launches {n}, quant8 {want_q8} "
-                  "expected and no flash / linrec")
+                  and n["flash_attention"] == n["linrec"] == 0
+                  and n["plain_grad"] == 0
+                  and {k: n[k] for k in want_fa} == want_fa,
+                  f"train loop {name}: launches {n}, quant8 {want_q8} and "
+                  f"training kernels {want_fa} expected, no prefill flash, "
+                  "linrec or plain attention")
             errs = {k: float(torch.stack([e for _, e in v]).max())
                     for k, v in held.items()}
             check(all(e == 0.0 for e in errs.values()),
@@ -2623,12 +2800,18 @@ def policy_loop(torch, model, params, card: str) -> dict:
 
 
 def walk_vs_card(torch, label: str, step, card_args, meta_args, card: str,
-                 runs: int = 3) -> dict:
+                 runs: int = 3, kernels_on_card: dict | None = None) -> dict:
     """Phase (d): one call of `step` walked on the card and on meta
     tensors (dist/cost.py) must give the same flops by dtype, bytes and
     ops, the kernels reporting by formula on both; the roofline of the
     walk (dist/hardware.Roofline on the H100 model) must not exceed the
-    step's measured time (the least of `runs` calls, synchronised)."""
+    step's measured time (the least of `runs` calls, synchronised).
+
+    `kernels_on_card` ({kernel: count}) names kernels the card takes where
+    meta takes the plain route (the training kernels: meta keeps the
+    reference's route): the card's walk must count each that often and
+    meta's none, the two walks are printed apart, and the card's walk gives
+    the roofline."""
     from repro_torch.dist import cost
     from repro_torch.dist.hardware import Roofline
     torch.cuda.synchronize()
@@ -2644,14 +2827,29 @@ def walk_vs_card(torch, label: str, step, card_args, meta_args, card: str,
           f"{on_meta['diagnostics'][:3]}")
     on_card["out"] = on_meta["out"] = None
     a, b = cost.totals(on_card), cost.totals(on_meta)
-    if a != b:
+    if kernels_on_card:
+        got = {k: (on_card["by_op"].get(k, {}).get("count", 0),
+                   on_meta["by_op"].get(k, {}).get("count", 0))
+               for k in kernels_on_card}
+        check(got == {k: (n, 0) for k, n in kernels_on_card.items()},
+              f"{label}: kernels (card, meta) {got}, expected "
+              f"{kernels_on_card} on the card alone")
+        print(f"phase (d), {label}: the card takes {kernels_on_card}, meta "
+              f"the plain route: card flops "
+              f"{ {k: f'{v:.6g}' for k, v in a['flops_by_dtype'].items()} }, "
+              f"{a['hbm_bytes'] / 1e9:.3f} GB; meta flops "
+              f"{ {k: f'{v:.6g}' for k, v in b['flops_by_dtype'].items()} }, "
+              f"{b['hbm_bytes'] / 1e9:.3f} GB", flush=True)
+        on_meta = on_card   # the roofline of what the card runs
+    elif a != b:
         for k in sorted(set(a["by_op"]) | set(b["by_op"])):
             if a["by_op"].get(k) != b["by_op"].get(k):
                 print(f"  {label} walk differs at {k}: card "
                       f"{a['by_op'].get(k)}, meta {b['by_op'].get(k)}")
-    check(a == b, f"{label}: walk on the card != walk on meta "
-          f"(flops {a['flops_by_dtype']} vs {b['flops_by_dtype']}, bytes "
-          f"{a['hbm_bytes']} vs {b['hbm_bytes']})")
+    check(bool(kernels_on_card) or a == b, f"{label}: walk on the card != "
+          f"walk on meta (flops {a['flops_by_dtype']} vs "
+          f"{b['flops_by_dtype']}, bytes {a['hbm_bytes']} vs "
+          f"{b['hbm_bytes']})")
     times = []
     for _ in range(runs):
         args = card_args()
@@ -2668,7 +2866,8 @@ def walk_vs_card(torch, label: str, step, card_args, meta_args, card: str,
                if not k.startswith("aten.")}
     top = {k: (v["count"], round(v["bytes"] / 1e9, 3)) for k, v in sorted(
         on_meta["by_op"].items(), key=lambda kv: -kv[1]["bytes"])[:8]}
-    print(f"phase (d), cost walk of {label} ({card}): card == meta: flops "
+    print(f"phase (d), cost walk of {label} ({card}): "
+          f"{'the card' if kernels_on_card else 'card == meta'}: flops "
           f"{ {k: f'{v:.6g}' for k, v in on_meta['flops_by_dtype'].items()} }"
           f", {on_meta['hbm_bytes'] / 1e9:.3f} GB, "
           f"{sum(v['count'] for v in on_meta['by_op'].values())} ops "
@@ -2687,7 +2886,7 @@ def walk_vs_card(torch, label: str, step, card_args, meta_args, card: str,
             "flops_by_dtype": on_meta["flops_by_dtype"],
             "hbm_bytes": on_meta["hbm_bytes"], "kernels": kernels,
             "top_bytes": top,
-            "times_s": times, "equal": True,
+            "times_s": times, "equal": not kernels_on_card,
             "meta": cost.totals(on_meta), "card": cost.totals(on_card)}
 
 
@@ -2711,7 +2910,8 @@ def prefill_walk(torch, model, params, card: str) -> dict:
 def train_walk(torch, card: str) -> dict:
     """Phase (d), qwen1.5-4b's train step at phase 25's shape (batch x
     seq, grad_accum 4, remat), params and adamw state drawn on the card,
-    walked on the card and on meta; its steps update the params."""
+    walked on the card (attention on the training kernels, by formula) and
+    on meta (the plain route); its steps update the params."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import (batch_token_stream,
                                             make_token_stream)
@@ -2737,10 +2937,13 @@ def train_walk(torch, card: str) -> dict:
     def meta():
         p = abstract_params(model.param_defs())
         return p, opt.init(p), abstract_params(model.input_defs(shape))
+    per = train_attention_launches(model.cfg, 1)
     rec = walk_vs_card(
         torch, f"{TRAIN_ARCH} train step {args.batch}x{args.seq} "
         f"(grad_accum {model.cfg.grad_accum}, remat {model.cfg.remat})",
-        step, lambda: (params, state, batch), meta, card, runs=2)
+        step, lambda: (params, state, batch), meta, card, runs=2,
+        kernels_on_card={"flash_attention_train_fwd": per["train_fwd"],
+                         "flash_attention_train_bwd": per["train_bwd"]})
     del params, state
     torch.cuda.empty_cache()
     return rec
@@ -2779,9 +2982,12 @@ def main() -> int:
         return f"built {name} in {time.perf_counter() - t0:.1f} s -> {path}"
     with ThreadPoolExecutor() as pool:
         for line in pool.map(build, ("fed_agg", "quant8", "flash_attention",
+                                     "flash_attention_train (D 64)",
+                                     "flash_attention_train (D 128)",
                                      "linrec"),
                              (kernel.library, q8.library, fa.library,
-                              lrk.library)):
+                              lambda: fa.train_library(64),
+                              lambda: fa.train_library(128), lrk.library)):
             print(line, flush=True)
 
     # 3. kernel vs plain version (launches here are not the main path's)
@@ -2959,6 +3165,8 @@ def main() -> int:
     # 10. flash_attention vs plain version (launches here are not the path's)
     fa_recs = flash_sweep(torch)
     fa_main = fa_recs[LM_ARCH]
+    # 10b. the training kernels against attention_full's autograd, timed
+    fa_train = flash_train_sweep(torch)
 
     # (a) the hardware model against the card
     hw_rec = hardware_check(torch, card)
@@ -3127,12 +3335,14 @@ def main() -> int:
         flash_paths[f"{arch} serve"] = r["serve"]["flash_attention"]
         if "loop" in r:
             flash_paths[f"{arch} ServeLoop"] = r["loop"]["flash_attention"]
-    # training takes the plain routes: no launch in phases 24-26
+    # training reaches no prefill flash launch in phases 24-26; its
+    # attention runs on the training kernels (their own entry below)
     train_paths = {"train smoke steps": tr_smoke["launches"],
                    f"{TRAIN_ARCH} train": tr_full["launches"],
                    f"{TRAIN_ARCH} train loop": {
                        k: sum(c["quant8"][k] for c in tr_fl["cases"].values())
-                       for k in ("flash_attention", "linrec")}}
+                       for k in ("flash_attention", "linrec", "train_fwd",
+                                 "train_bwd")}}
     for path, n in train_paths.items():
         flash_paths[path] = n["flash_attention"]
     table.append({
@@ -3149,6 +3359,24 @@ def main() -> int:
         # the other full-width prefill shapes, timed in the same call
         "other_shapes": {arch: r for arch, r in fa_recs.items()
                          if arch != LM_ARCH}})
+    # the training kernels (no TPU kernel: the reference differentiates
+    # its plain attention); ms is the backward at the benchmark cell's
+    # shape, fwd_ms the forward with its lse
+    table.append({
+        "name": "flash_attention_train", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_train.cu",
+        "replaces": None,
+        "launches": sum(n["train_fwd"] + n["train_bwd"]
+                        for n in train_paths.values()),
+        "launches_by_path": {path: {k: n[k] for k in ("train_fwd",
+                                                      "train_bwd")}
+                             for path, n in train_paths.items()},
+        "max_rel_err": max(max(r["vs_attention_full"])
+                           for r in fa_train["shapes"].values()),
+        **{k: fa_train[k] for k in ("ms", "fwd_ms", "prefill_ms", "bound_ms",
+                                    "bound_by", "fwd_bound_ms", "plain_ms",
+                                    "library_ms")}})
     # linrec on its main path: the tma route at falcon's prefill scan; the
     # column kernel (the other route) read in the same call
     lr = lr_main[f"{SSM_ARCH} prefill"]

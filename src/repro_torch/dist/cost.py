@@ -49,7 +49,8 @@ import contextlib
 import threading
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                        _get_current_dispatch_mode_stack)
 from torch.utils.flop_counter import flop_registry
 
 #: allocations and metadata: nothing read or written
@@ -166,9 +167,18 @@ class _Walk(TorchDispatchMode):
 
 
 def active():
-    """The innermost walk running on this thread, or None."""
+    """The innermost walk running on this thread, or None.  For CUDA
+    tensors autograd runs a backward (and remat's recompute inside it) on
+    a thread of its own, which inherits the dispatch modes but not this
+    module's thread-local stack: there it is the innermost walk among the
+    modes."""
     stack = getattr(_state, "stack", ())
-    return stack[-1] if stack else None
+    if stack:
+        return stack[-1]
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if isinstance(mode, _Walk):
+            return mode
+    return None
 
 
 @contextlib.contextmanager

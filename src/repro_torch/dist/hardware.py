@@ -210,6 +210,25 @@ def flash_attention_work(B: int, T: int, S: int, H: int, Hkv: int, D: int,
             item * (2 * B * T * H * D + 2 * B * S * Hkv * D))
 
 
+def flash_attention_train_fwd_work(B: int, T: int, H: int, Hkv: int,
+                                   D: int, window: int, causal: bool, dtype):
+    """flash_attention_work's, and each row's fp32 log-sum-exp written."""
+    flops, nbytes = flash_attention_work(B, T, T, H, Hkv, D, window, causal,
+                                         dtype)
+    return flops, nbytes + 4 * B * H * T
+
+
+def flash_attention_train_bwd_work(B: int, T: int, H: int, Hkv: int,
+                                   D: int, window: int, causal: bool, dtype):
+    """S, dP = dO V^T, dV, dK and dQ over the live pairs: 10 D FLOPs a pair
+    a head, at the inputs' dtype; q, o and dO read and dq written (B T H D),
+    k and v read and dk and dv written, the log-sum-exp read."""
+    item = 2 if _dtype_name(dtype) in ("bfloat16", "float16") else 4
+    flops = 10 * D * attention_pairs(T, window, causal) * B * H
+    return ({_dtype_name(dtype): flops},
+            item * (4 * B * T * H * D + 4 * B * T * Hkv * D) + 4 * B * H * T)
+
+
 def linrec_work(B: int, T: int, D: int, in_size: int, with_h0: bool):
     """h_t = a_t h_{t-1} + b_t: 2 fp32 operations an element; a and b
     read, fp32 h written, h0 read when given."""

@@ -15,6 +15,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from types import SimpleNamespace
 
 from repro_torch.kernels.build import NVCC_FLAGS, nvcc_path
 from repro_torch.kernels.fed_agg import kernel as fed_agg
@@ -23,7 +24,11 @@ from repro_torch.kernels.linrec import kernel as linrec
 from repro_torch.kernels.quant8 import kernel as quant8
 
 KERNELS = {"fed_agg": fed_agg, "quant8": quant8,
-           "flash_attention": flash_attention, "linrec": linrec}
+           "flash_attention": flash_attention,
+           # both head dims (the library a run builds holds one)
+           "flash_attention_train": SimpleNamespace(
+               SOURCES=flash_attention.TRAIN_SOURCES),
+           "linrec": linrec}
 
 
 def demangle(names: list[str]) -> list[str]:

@@ -35,23 +35,25 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str, sources: list[Path],
-                 headers: list[Path] = ()) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+                 headers: list[Path] = (), flags: tuple = ()) -> Path:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *flags)).encode())
     for src in (*sources, *headers):
         h.update(Path(src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_library(name: str, sources: list[Path],
-                  headers: list[Path] = ()) -> Path:
-    """Compile `sources` unless the library for their exact content, and
-    that of the `headers` they include, exists."""
-    out = library_path(name, sources, headers)
+                  headers: list[Path] = (), flags: tuple = ()) -> Path:
+    """Compile `sources` (with the extra nvcc `flags`, such as a -D that
+    picks what the source instantiates) unless the library for their exact
+    content, that of the `headers` they include and the flags exists."""
+    out = library_path(name, sources, headers, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+           *map(str, sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) for {name}:\n"
@@ -61,5 +63,5 @@ def build_library(name: str, sources: list[Path],
 
 
 def load_library(name: str, sources: list[Path],
-                 headers: list[Path] = ()) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build_library(name, sources, headers)))
+                 headers: list[Path] = (), flags: tuple = ()) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build_library(name, sources, headers, flags)))

@@ -12,7 +12,15 @@ alignment alone:
   "mma"    other bf16 with D <= 128: flash_fwd_mma (mma.sync);
   "fma"    fp32, and other bf16 with D > 128: flash_fwd_fma (fp32 FMAs).
 
-The library is built from the sources at first call (kernels/build.py),
+Training (csrc/flash_attention_train.cu, a library of its own):
+`flash_attention_train_fwd_cuda` runs flash_fwd_wgmma with the row
+log-sum-exp saved, `flash_attention_train_bwd_cuda` the backward kernels
+(dq; dk and dv), for inputs that `takes_grad` accepts: bf16 self attention
+that TMA can describe, with 32 < D <= 128.  Each counts its calls in
+`.launches`.  The training library holds only the padded head dim a call
+needs (64 or 128), built at its first call.
+
+The libraries are built from the sources at first call (kernels/build.py),
 never at import.
 """
 from __future__ import annotations
@@ -25,12 +33,15 @@ import torch
 
 from repro_torch.kernels.build import COMMON, load_library
 
-SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
-HEADERS = [COMMON / "tma.cuh"]   # included by the source
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = [CSRC / "flash_attention.cu"]
+TRAIN_SOURCES = [CSRC / "flash_attention_train.cu"]
+HEADERS = [CSRC / "flash_wgmma.cuh", COMMON / "tma.cuh"]   # included by both
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("fma", "mma", "wgmma")   # the C entry point's route codes 0, 1, 2
 MAX_HEAD_DIM = 256
 _LIB: list[ctypes.CDLL] = []   # loaded once per process
+_TRAIN_LIB: dict[int, ctypes.CDLL] = {}   # by padded head dim
 
 
 def library() -> ctypes.CDLL:
@@ -45,6 +56,27 @@ def library() -> ctypes.CDLL:
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _LIB.append(lib)
     return _LIB[0]
+
+
+def train_library(dp: int) -> ctypes.CDLL:
+    """The training kernels for padded head dim `dp` (64 or 128), built
+    with that head dim alone."""
+    if dp not in _TRAIN_LIB:
+        lib = load_library(f"flash_attention_train_d{dp}", TRAIN_SOURCES,
+                           HEADERS, flags=(f"-DFLASH_TRAIN_DP={dp}",))
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        fwd = lib.flash_attention_train_fwd
+        fwd.argtypes = ([p] * 6 + [i64] * 15
+                        + [i32, i32, ctypes.c_float, p])
+        fwd.restype = i32
+        bwd = lib.flash_attention_train_bwd
+        bwd.argtypes = ([p] * 11 + [i64] * 18
+                        + [i32, i32, ctypes.c_float, p])
+        bwd.restype = i32
+        lib.flash_attention_train_error_string.argtypes = [i32]
+        lib.flash_attention_train_error_string.restype = ctypes.c_char_p
+        _TRAIN_LIB[dp] = lib
+    return _TRAIN_LIB[dp]
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -135,3 +167,132 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.routes = dict.fromkeys(ROUTES, 0)
+
+
+def tma_strides(t: torch.Tensor) -> list[int]:
+    """t's batch, time and head strides (elements) as the training kernels'
+    TMA maps take them: a dim of size 1 addresses nothing, and its stride,
+    which PyTorch leaves at any value (an output gradient of batch 1 comes
+    with a batch stride of 1), is given the packed value of the dims inside
+    it."""
+    st = list(t.stride()[:3])
+    inner = (t.stride(3), st[2], st[1])
+    for d in (2, 1, 0):
+        if t.shape[d] == 1:
+            st[d] = t.shape[d + 1] * (st[d + 1] if d < 2 else inner[0])
+    return st
+
+
+def _tma_ok(t: torch.Tensor) -> bool:
+    return (t.shape[3] % 8 == 0 and t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(s > 0 and s % 8 == 0 for s in tma_strides(t)))
+
+
+def takes_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the training kernels take these inputs: bf16 self attention
+    (S == T, H a multiple of Hkv) with 32 < D <= 128 that TMA can describe
+    (`tma_strides`; otherwise `route`'s "wgmma" test).  Smaller heads would
+    spend over half the padded tensor work on zeros.  Reads only dtype,
+    shape, strides and data pointers, so meta and CPU tensors answer as CUDA
+    tensors of that layout would."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        return False
+    B, T, H, D = q.shape
+    return (q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and k.shape[0] == B and k.shape[1] == T and k.shape[3] == D
+            and k.shape[2] > 0 and H % k.shape[2] == 0
+            and 32 < D <= 128 and T > 0 and 0 < B <= 65535
+            and 0 < H <= 65535 and all(_tma_ok(t) for t in (q, k, v)))
+
+
+def _padded(T: int) -> int:
+    return -(-T // 128) * 128   # the lse rows, padded to the forward's tile
+
+
+def _train_dp(D: int) -> int:
+    return 64 if D <= 64 else 128
+
+
+def _raise(lib, err: int, what: str):
+    if err != 0:
+        raise RuntimeError(
+            f"{what} failed: CUDA error {err} "
+            f"({lib.flash_attention_train_error_string(err).decode()})")
+
+
+def flash_attention_train_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, *, causal: bool = True,
+                                   window: int = 0):
+    """q (B, T, H, D), k/v (B, T, Hkv, D) CUDA tensors that `takes_grad`
+    accepts -> (o (B, T, H, D) bf16 contiguous; o_lo, o's rounding
+    residual (o + o_lo is the fp32 output to within 2^-17 of itself); lse
+    (B, H, Tp) fp32 with Tp = T rounded up to 128: each row's natural
+    log-sum-exp of its scaled scores, rows past T not written)."""
+    if q.device.type != "cuda" or k.device != q.device or \
+            v.device != q.device or not takes_grad(q, k, v) or window < 0:
+        raise ValueError(
+            f"flash_attention_train_fwd_cuda: q {tuple(q.shape)} {q.dtype} "
+            f"on {q.device}, k {tuple(k.shape)}, window {window}: needs "
+            "CUDA tensors the training kernels take (takes_grad)")
+    B, T, H, D = q.shape
+    Tp = _padded(T)
+    o = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
+    o_lo = torch.empty_like(o)
+    lse = torch.empty(B, H, Tp, dtype=torch.float32, device=q.device)
+    lib = train_library(_train_dp(D))
+    strides = [s for t in (q, k, v) for s in tma_strides(t)]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_train_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            o_lo.data_ptr(), lse.data_ptr(), B, T, H, k.shape[2], D, Tp,
+            *strides,
+            int(bool(causal)), int(window), 1.0 / math.sqrt(D), stream)
+    _raise(lib, err, "flash_attention_train_fwd launch")
+    flash_attention_train_fwd_cuda.launches += 1
+    return o, o_lo, lse
+
+
+def flash_attention_train_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, o: torch.Tensor,
+                                   o_lo: torch.Tensor, lse: torch.Tensor,
+                                   do: torch.Tensor, *,
+                                   causal: bool = True, window: int = 0):
+    """The gradients of o = attention(q, k, v) for the output gradient
+    `do`, from the forward's o, o_lo and lse -> (dq, dk, dv), bf16
+    contiguous in the shapes of q, k and v.  Deterministic: no atomics."""
+    if not takes_grad(q, k, v) or do.shape != q.shape or \
+            do.dtype != q.dtype or o.shape != q.shape or \
+            o_lo.shape != q.shape or not o.is_contiguous() or \
+            not o_lo.is_contiguous() or \
+            lse.shape != (q.shape[0], q.shape[2], _padded(q.shape[1])):
+        raise ValueError(
+            f"flash_attention_train_bwd_cuda: q {tuple(q.shape)}, do "
+            f"{tuple(do.shape)} {do.dtype}, o {tuple(o.shape)}, lse "
+            f"{tuple(lse.shape)}: not the forward's")
+    if not _tma_ok(do):
+        do = do.clone(memory_format=torch.contiguous_format)
+    B, T, H, D = q.shape
+    Hkv = k.shape[2]
+    dq = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
+    dk = torch.empty(B, T, Hkv, D, dtype=q.dtype, device=q.device)
+    dv = torch.empty(B, T, Hkv, D, dtype=q.dtype, device=q.device)
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    lib = train_library(_train_dp(D))
+    strides = [s for t in (q, k, v, do) for s in tma_strides(t)]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_train_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            o_lo.data_ptr(), lse.data_ptr(), do.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, T, H, Hkv, D, lse.shape[2],
+            *strides, int(bool(causal)), int(window), 1.0 / math.sqrt(D),
+            stream)
+    _raise(lib, err, "flash_attention_train_bwd launch")
+    flash_attention_train_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_train_fwd_cuda.launches = 0
+flash_attention_train_bwd_cuda.launches = 0

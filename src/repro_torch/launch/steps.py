@@ -12,9 +12,12 @@ view of the stack's storage (`param.LayerSlices`), so no layer's
 gradient is a full-size (L, ...) tensor.  The gradient's norm is one
 fp32 reduction over all pieces before any update; the clip and the
 optimizer's update then stream piece by piece (`Optimizer.step_`).  A
-call that carries a gradient takes the reference's plain attention and
-scan routes (`layers.select_attention`, `ssm._scan`): no flash_attention
-or linrec launch happens in training.
+call that carries a gradient takes the training kernels for attention on
+the card where they take its inputs (`layers.select_attention`:
+`flash_attention_train`, a forward that saves the row log-sum-exp and a
+hand-written backward; bf16 heads of 33 to 128 on the TMA route), and the
+reference's plain attention and scan routes otherwise (`ssm._scan`: no
+linrec launch happens in training).
 """
 from __future__ import annotations
 

@@ -11,10 +11,14 @@ Attention over a whole sequence (train, prefill: T == S, no query
 offset) goes to the `flash_attention` kernel for every length
 (`select_attention`): causal self attention, and non-causal for an
 encoder and for cross attention whose keys have the queries' length.
+A call that carries a gradient (`grad_requested`: training) over a whole
+sequence goes to the differentiable `flash_attention_train` (forward and
+backward kernels) on the card when its inputs are what those kernels
+take (`grad_takes_kernel`: bf16 on the TMA route, 32 < D <= 128).
 Cross attention over keys of another length, queries at an offset into
-their keys (contiguous chunk_prefill), and every call that carries a
-gradient (`grad_requested`: training) take the reference's plain
-routes, as plain torch:
+their keys (contiguous chunk_prefill), and the other gradient calls
+(CPU and meta tensors among them) take the reference's plain routes, as
+plain torch:
 `attention_full` up to 4,096 positions, the blockwise scans
 (`flash_attention_xla`, `flash_attention_xla_triangular`) above.  The
 paged cache (`paged_kv_write`, `paged_gather_kv`, `paged_chunk_attention`)
@@ -32,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import cache as kvcache
 from repro_torch.models.param import pdef
@@ -40,9 +45,10 @@ from repro_torch.tree import leaves as _leaves
 
 def grad_requested(*tensors) -> bool:
     """Whether a call carries a gradient: autograd is on and one of
-    `tensors` (None allowed) requires grad.  Such a call takes the
-    reference's plain routes, which autograd differentiates; the kernel
-    ops have no backward and raise on it.  The mode is not the signal: an
+    `tensors` (None allowed) requires grad.  Such a call takes a route
+    that autograd differentiates: the plain routes, or for attention the
+    training kernels where they take it (`select_attention`); the
+    forward-only kernel ops raise on it.  The mode is not the signal: an
     encoder runs mode="train" inside a prefill."""
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
@@ -386,12 +392,20 @@ def select_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     reference's plain routes, which round P to the activation dtype:
     `attention_full` up to 4,096 positions, the triangular blockwise
     schedule for long causal T == S, `flash_attention_xla` otherwise.
-    A call that carries a gradient takes the plain routes at any shape:
-    they are what the reference differentiates, and the kernel has no
-    backward."""
+    A call that carries a gradient takes `flash_attention_train` (the
+    forward with its log-sum-exp saved and the backward kernels) for CUDA
+    tensors that `grad_takes_kernel` accepts, and the plain routes
+    otherwise, whose rounding points are the reference's; the counts of
+    each are in `select_attention.grad_routes`."""
     T, S = q.shape[1], k.shape[1]
-    if T == S and isinstance(q_offset, int) and q_offset == 0 \
-            and not grad_requested(q, k, v):
+    if grad_requested(q, k, v):
+        if q.device.type == "cuda" and grad_takes_kernel(
+                q, k, v, q_offset=q_offset, impl=impl):
+            _GRAD_ROUTES["kernel"] += 1
+            return flash_ops.flash_attention_train(q, k, v, causal=causal,
+                                                   window=window)
+        _GRAD_ROUTES["plain"] += 1
+    elif T == S and isinstance(q_offset, int) and q_offset == 0:
         return flash_ops.flash_attention(q, k, v, causal=causal,
                                          window=window, impl=impl)
     if max(T, S) <= 4096:
@@ -402,6 +416,25 @@ def select_attention(q, k, v, *, causal=True, window=0, q_offset=0,
         return flash_attention_xla_triangular(q, k, v, q_offset=q_offset)
     return flash_attention_xla(q, k, v, causal=causal, window=window,
                                q_offset=q_offset)
+
+
+# gradient-carrying calls by route, counted into the dict itself rather
+# than through the name select_attention, so the count holds while a
+# wrapper stands in its place (chip_smoke.py's planted faults)
+_GRAD_ROUTES = {"kernel": 0, "plain": 0}
+select_attention.grad_routes = _GRAD_ROUTES
+
+
+def grad_takes_kernel(q, k, v, *, q_offset=0, impl="auto") -> bool:
+    """Whether a call that carries a gradient would run on the training
+    kernels were its tensors on the card: self attention over the whole
+    sequence (T == S, the int offset 0), `impl="auto"`, and inputs the
+    kernels take (`kernel.takes_grad`: bf16 on the TMA route, 32 < D <=
+    128).  Reads shapes, dtypes and strides only, so meta tensors answer
+    as CUDA tensors of that layout would."""
+    return (impl == "auto" and q.shape[1] == k.shape[1]
+            and isinstance(q_offset, int) and q_offset == 0
+            and flash_kernel.takes_grad(q, k, v))
 
 
 # --------------------------------------------------------------------------

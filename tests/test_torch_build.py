@@ -26,14 +26,28 @@ def test_library_name_follows_sources_and_headers(tmp_path):
     assert first.parent == build.BUILD_DIR
 
 
+def _included(path, seen):
+    """The headers `path` includes by a quoted relative path, and theirs
+    in turn, resolved against the including file."""
+    for name in re.findall(r'#include "(\S+)"', path.read_text()):
+        h = (path.parent / name).resolve()
+        if h not in seen:
+            seen.add(h)
+            _included(h, seen)
+    return seen
+
+
 @pytest.mark.parametrize("mod", [flash_attention, linrec],
                          ids=["flash_attention", "linrec"])
 def test_tma_kernels_hash_the_header_they_include(mod):
-    """Each source that includes a csrc_common header lists it in its
-    module's HEADERS, and the header exists."""
-    text = mod.SOURCES[0].read_text()
-    included = set(re.findall(r'#include "\.\./\.\./csrc_common/(\S+)"',
-                              text))
-    assert included == {h.name for h in mod.HEADERS} == {"tma.cuh"}
+    """Every header a library's sources include, directly or through
+    another header, is in its module's HEADERS (which the library's name
+    hashes) and exists; the shared csrc_common/tma.cuh among them, and no
+    header listed that none includes."""
+    for sources in (mod.SOURCES, getattr(mod, "TRAIN_SOURCES", [])):
+        for src in sources:
+            included = _included(src, set())
+            assert included == {h.resolve() for h in mod.HEADERS}
+    assert build.COMMON / "tma.cuh" in mod.HEADERS
     for h in mod.HEADERS:
-        assert h.is_file() and h.parent == build.COMMON
+        assert h.is_file()

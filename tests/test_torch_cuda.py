@@ -592,6 +592,137 @@ def test_flash_attention_kernel_refuses_cross_attention(cuda):
     assert fa.flash_attention_cuda.launches == before
 
 
+# the training kernels: (B, T, H, Hkv, D, window, causal) -- the cell's
+# (qwen1.5-4b, 8 x 1,024), chip_smoke phase 25's microbatch, GQA under a
+# window, non-causal, phi-3-vision's D = 96 padded to 128, an odd T at D = 64
+TRAIN_SHAPES = [(8, 1024, 20, 20, 128, 0, True), (1, 1024, 20, 20, 128, 0, True),
+                (2, 333, 8, 2, 64, 100, True), (1, 300, 4, 4, 128, 0, False),
+                (1, 520, 8, 2, 96, 0, True), (2, 77, 4, 2, 64, 0, True)]
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES,
+                         ids=["x".join(map(str, s)) for s in TRAIN_SHAPES])
+def test_flash_train_kernels_match_attention_full(cuda, shape):
+    """The training kernels' o, dq, dk and dv against torch.autograd of
+    the model's attention_full in fp32 on the same bf16 values, and against
+    ref.py's blockwise backward (1e-2 of the largest entry: bf16 outputs);
+    o + o_lo against the fp32 output (1e-4); the forward's o equal to the
+    prefill kernel's bit for bit; a second backward equal bit for bit."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.models.layers import attention_full
+    B, T, H, Hkv, D, window, causal = shape
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = (torch.randn(B, T, H, D, generator=g, device=cuda) * 0.5).bfloat16()
+    k = (torch.randn(B, T, Hkv, D, generator=g, device=cuda) * 0.5
+         ).bfloat16()
+    v = torch.randn(B, T, Hkv, D, generator=g, device=cuda).bfloat16()
+    do = torch.randn(B, T, H, D, generator=g, device=cuda).bfloat16()
+    assert fa.takes_grad(q, k, v)
+    launches = (fa.flash_attention_train_fwd_cuda.launches,
+                fa.flash_attention_train_bwd_cuda.launches)
+    o, o_lo, lse = fa.flash_attention_train_fwd_cuda(q, k, v, causal=causal,
+                                                     window=window)
+    grads = fa.flash_attention_train_bwd_cuda(q, k, v, o, o_lo, lse, do,
+                                              causal=causal, window=window)
+    again = fa.flash_attention_train_bwd_cuda(q, k, v, o, o_lo, lse, do,
+                                              causal=causal, window=window)
+    served = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_train_fwd_cuda.launches,
+            fa.flash_attention_train_bwd_cuda.launches) == (
+        launches[0] + 1, launches[1] + 2)
+    assert torch.equal(o, served)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+    def rel(a, b):
+        a, b = a.detach().float(), b.detach().float()
+        return float((a - b).abs().max() / b.abs().max())
+    ins = [t.float().requires_grad_(True) for t in (q, k, v)]
+    out = attention_full(*ins, causal=causal, window=window)
+    want = torch.autograd.grad(out, ins, do.float())
+    bhtd = [t.transpose(1, 2) for t in (q, k, v)]
+    of, lse_ref = ref.attention_lse_ref(*bhtd, causal=causal, window=window)
+    blockwise = ref.attention_bwd_ref(
+        *bhtd, (o.float() + o_lo.float()).transpose(1, 2), lse[..., :T],
+        do.transpose(1, 2), causal=causal, window=window)
+    assert rel(o.float() + o_lo.float(), of.transpose(1, 2)) <= 1e-4
+    assert float((lse[..., :T] - lse_ref).abs().max()) <= 1e-4
+    assert rel(o, out) <= 1e-2
+    for got, w, b in zip(grads, want, blockwise):
+        assert got.dtype == torch.bfloat16 and got.is_contiguous()
+        assert rel(got, w) <= 1e-2 and rel(got, b.transpose(1, 2)) <= 1e-2
+
+
+def test_flash_train_backward_takes_a_batch_one_gradient(cuda):
+    """An output gradient of batch 1 comes with a batch stride of 1 (which
+    PyTorch calls contiguous); the backward reads it through the packed
+    strides and gives the bits it gives for a freshly packed copy."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, do = ((torch.randn(1, 256, 4, 128, generator=g, device=cuda)
+                    * 0.5).bfloat16() for _ in range(4))
+    view = do.as_strided(do.shape, (1,) + do.stride()[1:])
+    assert view.is_contiguous() and view.stride(0) == 1
+    o, o_lo, lse = fa.flash_attention_train_fwd_cuda(q, k, v)
+    got = fa.flash_attention_train_bwd_cuda(q, k, v, o, o_lo, lse, view)
+    want = fa.flash_attention_train_bwd_cuda(q, k, v, o, o_lo, lse,
+                                             do.clone())
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_flash_train_op_refuses_what_the_kernels_do_not_take(cuda):
+    """fp32, D = 16 (a smoke head) and D = 256 are not the training
+    kernels'; the wrappers raise before any launch."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    before = fa.flash_attention_train_fwd_cuda.launches
+    for D, dtype in ((128, torch.float32), (16, torch.bfloat16),
+                     (256, torch.bfloat16)):
+        q = torch.zeros(1, 64, 2, D, device=cuda, dtype=dtype)
+        assert not fa.takes_grad(q, q, q)
+        with pytest.raises(ValueError, match="takes_grad"):
+            fa.flash_attention_train_fwd_cuda(q, q, q)
+    assert fa.flash_attention_train_fwd_cuda.launches == before
+
+
+def test_train_step_routes_attention_to_the_kernels(cuda):
+    """A train step of the qwen1.5-4b smoke config widened to heads of 64
+    (remat on) routes every gradient-carrying attention call to the
+    training kernels (2 forwards a layer under remat, one backward), none
+    to the plain route, and follows the same steps on the CPU (plain
+    route) within examples/train_gap.py's tolerances."""
+    import dataclasses
+    from repro_torch import threefry
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.examples import train_gap
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models import build_model, layers
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_smoke_config("qwen1.5-4b"), head_dim=64,
+                              remat=True)
+    model = build_model(cfg)
+    params = model.init(threefry.key(0), "cpu")
+    batch = train_gap.train_batch(model, train_gap.BATCH, train_gap.SEQ)
+    cpu = train_gap.run_steps(model, params,
+                              train_gap.to_torch(batch, model, "cpu"))
+    routes = dict(layers.select_attention.grad_routes)
+    n = (fa.flash_attention_train_fwd_cuda.launches,
+         fa.flash_attention_train_bwd_cuda.launches)
+    card = train_gap.run_steps(model, tree_map(lambda t: t.to(cuda), params),
+                               train_gap.to_torch(batch, model, cuda))
+    L, steps = cfg.num_layers, train_gap.STEPS
+    assert layers.select_attention.grad_routes == {
+        "kernel": routes["kernel"] + 2 * L * steps, "plain": routes["plain"]}
+    assert (fa.flash_attention_train_fwd_cuda.launches - n[0],
+            fa.flash_attention_train_bwd_cuda.launches - n[1]) == (
+        2 * L * steps, L * steps)
+    card = (tree_map(lambda t: t.cpu(), card[0]),
+            tree_map(lambda t: t.cpu(), card[1]), card[2])
+    g = train_gap.gaps(params, cpu, card)
+    assert train_gap.violations(cfg, g) == [], g
+
+
 @pytest.mark.parametrize("arch", ["granite-20b", "chatglm3-6b",
                                   "recurrentgemma-9b"])
 def test_one_flash_launch_per_layer_per_prefill(cuda, arch):
@@ -1068,7 +1199,8 @@ def test_train_step_on_card_follows_cpu(cuda, arch):
     """Two adamw steps of a smoke model on the card against the same steps
     on the CPU (examples/train_gap.py's params, batch and tolerances), with
     no flash_attention or linrec launch: a step that carries a gradient
-    takes the plain routes."""
+    takes the plain routes (the smoke heads of 8 to 16 are below what the
+    training kernels take)."""
     from repro_torch import threefry
     from repro_torch.configs import get_smoke_config
     from repro_torch.examples import train_gap
@@ -1082,10 +1214,14 @@ def test_train_step_on_card_follows_cpu(cuda, arch):
     batch = train_gap.train_batch(model, train_gap.BATCH, train_gap.SEQ)
     cpu = train_gap.run_steps(model, params,
                               train_gap.to_torch(batch, model, "cpu"))
-    before = (flash_attention_cuda.launches, linrec_cuda.launches)
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_train_fwd_cuda
+    before = (flash_attention_cuda.launches, linrec_cuda.launches,
+              flash_attention_train_fwd_cuda.launches)
     card = train_gap.run_steps(model, tree_map(lambda t: t.to(cuda), params),
                                train_gap.to_torch(batch, model, cuda))
-    assert (flash_attention_cuda.launches, linrec_cuda.launches) == before
+    assert (flash_attention_cuda.launches, linrec_cuda.launches,
+            flash_attention_train_fwd_cuda.launches) == before
     card = (tree_map(lambda t: t.cpu(), card[0]),
             tree_map(lambda t: t.cpu(), card[1]), card[2])
     g = train_gap.gaps(params, cpu, card)
@@ -1133,6 +1269,29 @@ def _smoke_walks(model, kind, device):
     opt = adamw(1e-3)
     return cost.analyze(make_train_step(model, opt), params,
                         opt.init(params), batch)
+
+
+def test_cost_walk_counts_the_training_kernels_on_card(cuda):
+    """A train step whose attention the card routes to the training
+    kernels (qwen1.5-4b's smoke config with heads of 64, remat on) walked
+    on the card counts each kernel by its formula, the backward and remat's
+    recompute too, which autograd runs on a thread of its own; on meta the
+    same step keeps the plain route and counts neither."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_smoke_config("qwen1.5-4b"), head_dim=64,
+                              remat=True)
+    model = build_model(cfg)
+    card, meta = _smoke_walks(model, "train", cuda), \
+        _smoke_walks(model, "train", "meta")
+    assert card["out"] is not None and meta["out"] is not None
+    L = cfg.num_layers * cfg.grad_accum
+    got = {k: (card["by_op"].get(k, {}).get("count", 0),
+               meta["by_op"].get(k, {}).get("count", 0))
+           for k in ("flash_attention_train_fwd", "flash_attention_train_bwd")}
+    assert got == {"flash_attention_train_fwd": (2 * L, 0),
+                   "flash_attention_train_bwd": (L, 0)}
 
 
 @pytest.mark.parametrize("arch,kind", [("granite-20b", "prefill"),

@@ -233,3 +233,253 @@ def test_kernel_resources_reads_ptxas_report(monkeypatch, tmp_path):
     assert [(r["entry"], r["registers"], r["spill_stores"], r["spill_loads"],
              r["stack"], r["smem"]) for r in recs] == [
         ("_Z3fooPf", 168, 416, 400, 208, 0), ("_Z3barv", 32, 0, 0, 0, 4096)]
+
+
+# -- training: the differentiable op, its plain backward, the route -------
+
+def _grads_of(fn, q, k, v, do):
+    """d(fn(q, k, v) . do) / d(q, k, v), fp32 leaves made from the inputs'
+    values unless they already are leaves."""
+    ins = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*ins)
+    return out, torch.autograd.grad(out, ins, do.to(out.dtype))
+
+
+def _rel(got, want):
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def _train_inputs(B, T, H, Hkv, D, dtype, seed=0):
+    (q, k, v), (qt, kt, vt) = _qkv(B, T, H, Hkv, D, dtype, seed=seed)
+    rng = np.random.default_rng(seed + 101)
+    do = rng.normal(size=(B, T, H, D)).astype(np.float32)
+    jdo = jnp.asarray(do, DTYPES[dtype][0])
+    return (q, k, v, jdo), (qt, kt, vt, from_reference(np.asarray(jdo)))
+
+
+TRAIN_CASES = [(T, H, Hkv, D, window, True)
+               for T, H, Hkv, D, window in SWEEP] + [
+    (77, 4, 2, 16, 0, False), (256, 4, 1, 64, 0, False)]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("T,H,Hkv,D,window,causal", TRAIN_CASES)
+def test_train_op_matches_autograd_of_attention_full(T, H, Hkv, D, window,
+                                                     causal, dtype):
+    """flash_attention_train on the CPU (ref.py's forward with its lse and
+    blockwise backward, the kernels' arithmetic) against torch.autograd of
+    the model's attention_full on the same values in fp32: output and the
+    three gradients, each within the file's tolerance of the largest
+    reference entry."""
+    from repro_torch.models.layers import attention_full
+    _, (qt, kt, vt, dot) = _train_inputs(2, T, H, Hkv, D, dtype)
+    tol = DTYPES[dtype][1]
+    out, got = _grads_of(lambda q, k, v: tops.flash_attention_train(
+        q, k, v, causal=causal, window=window), qt, kt, vt, dot)
+    want_out, want = _grads_of(lambda q, k, v: attention_full(
+        q, k, v, causal=causal, window=window),
+        *(t.float() for t in (qt, kt, vt)), dot.float())
+    assert out.dtype == qt.dtype and out.is_contiguous()
+    assert [g.dtype for g in got] == [qt.dtype] * 3
+    assert _rel(out, want_out) <= tol
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert _rel(g, w) <= tol, (_rel(g, w), tol)
+
+
+@pytest.mark.parametrize("T,H,Hkv,D,window,causal", TRAIN_CASES)
+def test_train_op_matches_jax_grad(T, H, Hkv, D, window, causal):
+    """The same gradients against jax.vjp of the JAX package's
+    attention_full, fp32, on the same numpy inputs (3e-4 of the largest
+    entry)."""
+    import jax
+    (q, k, v, do), (qt, kt, vt, dot) = _train_inputs(1, T, H, Hkv, D,
+                                                     "float32", seed=3)
+    _, vjp = jax.vjp(lambda q, k, v: jlayers.attention_full(
+        q, k, v, causal=causal, window=window), q, k, v)
+    want = vjp(do)
+    _, got = _grads_of(lambda q, k, v: tops.flash_attention_train(
+        q, k, v, causal=causal, window=window), qt, kt, vt, dot)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(
+            g.numpy(), np.asarray(w), rtol=0,
+            atol=3e-4 * float(np.abs(np.asarray(w)).max()))
+
+
+@pytest.mark.parametrize("T,window,causal", [(300, 0, True), (200, 70, True),
+                                             (130, 0, False)])
+def test_bwd_ref_tiling_and_splits(T, window, causal):
+    """attention_bwd_ref is one algorithm at every tiling (tiles of 16 to
+    128, T no multiple of any, dead tiles skipped): its gradients agree
+    across tilings to fp32 round-off, and with P and dS split hi + lo they
+    stay within 2^-15 of fp32 products (here: the same backward with the
+    splits' lo parts dropped moves them by far more)."""
+    from repro_torch.kernels.flash_attention import ref
+    _, (qt, kt, vt, dot) = _train_inputs(1, T, 4, 2, 64, "bfloat16", seed=7)
+    qh, kh, vh, doh = (t.transpose(1, 2) for t in (qt, kt, vt, dot))
+    of, lse = ref.attention_lse_ref(qh, kh, vh, causal=causal, window=window)
+    runs = [ref.attention_bwd_ref(qh, kh, vh, of, lse, doh, causal=causal,
+                                  window=window, bq=bq, bk=bk)
+            for bq, bk in ((64, 64), (16, 32), (128, 64))]
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert _rel(a, b) <= 2 ** -8   # bf16 outputs: one rounding apart
+    # the fp32 gradients (no rounding of outputs): splits vs none
+    qf, kf, vf, dof = (t.float() for t in (qh, kh, vh, doh))
+    split = ref.attention_bwd_ref(qf, kf, vf, of, lse, dof, causal=causal,
+                                  window=window)
+    orig = ref.split_bf16
+    try:
+        ref.split_bf16 = lambda x: (x, torch.zeros_like(x))
+        exact = ref.attention_bwd_ref(qf, kf, vf, of, lse, dof,
+                                      causal=causal, window=window)
+        ref.split_bf16 = lambda x: (x.to(torch.bfloat16).float(),
+                                    torch.zeros_like(x))
+        hi_only = ref.attention_bwd_ref(qf, kf, vf, of, lse, dof,
+                                        causal=causal, window=window)
+    finally:
+        ref.split_bf16 = orig
+    for s, e, h in zip(split, exact, hi_only):
+        assert _rel(s, e) <= 2 ** -15
+        assert _rel(h, e) > 4 * _rel(s, e)
+
+
+def test_lse_ref_is_the_rows_log_sum_exp():
+    """attention_lse_ref's output is attention_ref's before its rounding
+    (within one bf16 rounding of it) and its lse is each row's log-sum-exp
+    of the masked scaled scores."""
+    from repro_torch.kernels.flash_attention import ref
+    _, (qt, kt, vt, _) = _train_inputs(2, 77, 4, 2, 16, "bfloat16")
+    qh, kh, vh = (t.transpose(1, 2) for t in (qt, kt, vt))
+    of, lse = ref.attention_lse_ref(qh, kh, vh, window=20)
+    assert of.dtype == torch.float32
+    assert _rel(of, attention_ref(qh, kh, vh, window=20)) <= 2 ** -8
+    s = torch.einsum("bhtd,bhsd->bhts", qh.float(),
+                     kh.float().repeat_interleave(2, 1)) / 4.0
+    t = torch.arange(77)
+    live = (t[None, :] <= t[:, None]) & (t[None, :] > t[:, None] - 20)
+    want = torch.logsumexp(s.masked_fill(~live, -torch.inf), -1)
+    torch.testing.assert_close(lse, want, rtol=1e-6, atol=1e-6)
+
+
+def test_train_op_under_checkpoint_and_same_bits():
+    """Inside torch.utils.checkpoint (remat: the forward runs again in the
+    backward) the op gives the gradients it gives without, bit for bit, and
+    two calls give the same bits."""
+    from torch.utils.checkpoint import checkpoint
+    _, (qt, kt, vt, dot) = _train_inputs(1, 100, 4, 2, 48, "bfloat16")
+
+    def f(q, k, v):
+        return tops.flash_attention_train(q, k, v, window=40)
+    _, plain = _grads_of(f, qt, kt, vt, dot)
+    _, again = _grads_of(f, qt, kt, vt, dot)
+    _, remat = _grads_of(lambda q, k, v: checkpoint(f, q, k, v,
+                                                    use_reentrant=False),
+                         qt, kt, vt, dot)
+    for a, b, c in zip(plain, again, remat):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_train_op_reports_its_work_to_a_walk():
+    """On meta tensors the op returns empty outputs and gradients, and a
+    cost walk of its forward and backward counts the two formulas."""
+    from repro_torch.dist import cost, hardware
+    q, k, v = (t.requires_grad_(True) for t in _meta(2, 256, 8, 2, 128))
+
+    def step(q, k, v):
+        out = tops.flash_attention_train(q, k, v)
+        return torch.autograd.grad(out, (q, k, v), torch.empty_like(out))
+    rec = cost.analyze(step, q, k, v)
+    assert rec["out"] is not None and rec["diagnostics"] == []
+    assert all(g.device.type == "meta" and g.shape == t.shape
+               for g, t in zip(rec["out"], (q, k, v)))
+    fwd = hardware.flash_attention_train_fwd_work(2, 256, 8, 2, 128, 0,
+                                                  True, torch.bfloat16)
+    bwd = hardware.flash_attention_train_bwd_work(2, 256, 8, 2, 128, 0,
+                                                  True, torch.bfloat16)
+    for name, (flops, nbytes) in (("flash_attention_train_fwd", fwd),
+                                  ("flash_attention_train_bwd", bwd)):
+        got = rec["by_op"][name]
+        assert got["count"] == 1 and got["bytes"] == nbytes
+        assert got["flops"] == sum(flops.values())
+    assert bwd[0]["bfloat16"] == 2.5 * fwd[0]["bfloat16"]
+
+
+# which gradient calls would take the training kernels on the card
+GRAD_ROUTES = [
+    # (B, T, S, H, Hkv, D, dtype, q_offset, impl) -> kernel?
+    ((8, 1024, 1024, 20, 20, 128, torch.bfloat16, 0, "auto"), True),  # cell
+    ((1, 1024, 1024, 20, 20, 128, torch.bfloat16, 0, "auto"), True),
+    ((2, 77, 77, 32, 32, 96, torch.bfloat16, 0, "auto"), True),    # padded
+    ((2, 333, 333, 64, 4, 64, torch.bfloat16, 0, "auto"), True),   # GQA
+    ((1, 9, 9, 4, 1, 40, torch.bfloat16, 0, "auto"), True),
+    ((8, 1024, 1024, 20, 20, 128, torch.float32, 0, "auto"), False),
+    ((1, 64, 80, 4, 4, 128, torch.bfloat16, 0, "auto"), False),    # T != S
+    ((1, 64, 64, 4, 4, 128, torch.bfloat16, 1, "auto"), False),    # offset
+    ((1, 64, 64, 4, 4, 128, torch.bfloat16, 0, "ref"), False),
+    ((2, 37, 37, 8, 2, 16, torch.bfloat16, 0, "auto"), False),     # smoke D
+    ((2, 37, 37, 8, 2, 32, torch.bfloat16, 0, "auto"), False),
+    ((2, 37, 37, 8, 2, 12, torch.bfloat16, 0, "auto"), False),     # mma
+    ((2, 2048, 2048, 16, 1, 256, torch.bfloat16, 0, "auto"), False),
+]
+
+
+@pytest.mark.parametrize("shape,kernel", GRAD_ROUTES,
+                         ids=[f"{s[1]}x{s[2]}-{s[3]}/{s[4]}-D{s[5]}-"
+                              f"{str(s[6])[6:]}-off{s[7]}-{s[8]}"
+                              for s, _ in GRAD_ROUTES])
+def test_grad_route_on_meta(shape, kernel):
+    """layers.grad_takes_kernel answers, from shapes, dtypes and strides
+    alone, which gradient calls the card would route to the training
+    kernels; on meta tensors (as on the CPU) select_attention keeps every
+    gradient call on the plain route, counted as such."""
+    from repro_torch.models import layers
+    B, T, S, H, Hkv, D, dtype, off, impl = shape
+    meta = {"device": "meta", "dtype": dtype}
+    q = torch.empty(B, T, H, D, **meta).requires_grad_(True)
+    k = torch.empty(B, S, Hkv, D, **meta).requires_grad_(True)
+    v = torch.empty(B, S, Hkv, D, **meta).requires_grad_(True)
+    assert layers.grad_takes_kernel(q, k, v, q_offset=off,
+                                    impl=impl) is kernel
+    before = dict(layers.select_attention.grad_routes)
+    out = layers.select_attention(q, k, v, q_offset=off, impl=impl)
+    assert out.shape == q.shape and out.requires_grad
+    assert layers.select_attention.grad_routes == {
+        "kernel": before["kernel"], "plain": before["plain"] + 1}
+    with torch.no_grad():     # no gradient: not counted
+        layers.select_attention(q, k, v, q_offset=off, impl=impl)
+    assert layers.select_attention.grad_routes["plain"] == \
+        before["plain"] + 1
+
+
+def test_grad_route_needs_a_layout_tma_reads():
+    """A bf16 head of 128 that TMA cannot describe (a base off 16 bytes)
+    stays on the plain route, as its forward takes mma."""
+    from repro_torch.models import layers
+    off = torch.empty(1, 9, 4, 136, device="meta", dtype=torch.bfloat16)
+    q = off[..., 4:132]
+    assert tkernel.route(q, q, q) == "mma"
+    assert not layers.grad_takes_kernel(q, q, q)
+    assert layers.grad_takes_kernel(off[..., 8:136], off[..., 8:136],
+                                    off[..., 8:136])
+
+
+def test_tma_strides_pack_size_one_dims():
+    """An output gradient of batch 1 arrives with a batch stride of 1,
+    which PyTorch calls contiguous: the training kernels' strides give
+    size-1 dims the packed value, so such a tensor (and q, k, v of batch 1
+    or one kv head) is what they take, and other strides are kept."""
+    do = torch.empty(1, 32, 4, 64, device="meta").as_strided(
+        (1, 32, 4, 64), (1, 256, 64, 1))
+    assert do.is_contiguous() and do.stride(0) == 1
+    assert tkernel.tma_strides(do) == [8192, 256, 64]
+    mqa = torch.empty(2, 9, 1, 128, device="meta").as_strided(
+        (2, 9, 1, 128), (1152, 128, 3, 1))
+    assert tkernel.tma_strides(mqa) == [1152, 128, 128]
+    wide = torch.empty(2, 9, 6, 72, device="meta")[..., :64]
+    assert tkernel.tma_strides(wide) == [3888, 432, 72]
+    q = do.to(torch.bfloat16)
+    assert tkernel.route(q, q, q) == "mma"      # the prefill's own test
+    assert tkernel.takes_grad(q, q, q)
