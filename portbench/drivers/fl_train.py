@@ -1,33 +1,51 @@
 """Driver of federated LM training: `repro_torch.launch.train.main`, the
-program's own loop (islands, E local steps, the compressed exchange),
-fed with the benchmark's weights and token streams.
+program's own loop (islands, E local steps, the compressed exchange, flat
+or through fog cells, applied at once or one step stale), fed with the
+benchmark's weights and token streams.
+
+What differs between training cells comes from their files: the
+program's `ModelConfig` is the configuration's `as_run` (an unknown key
+is refused), what only the reference reads is its `harness` section
+(the norm epsilon, the coefficient of each auxiliary loss term), the
+FLOPs a token are the family layout's, and the traffic file gives the
+loop's flags (`program_argv`: `fog_cells` and `overlap` where it states
+them).
 
 The program is given four of its globals for the run (`core.patched`):
 `init_params_on_device` returns the benchmark's weights made from the
 seed; `make_token_stream` the benchmark's stream of each island; around
-the step that `make_fl_train_step` builds and the exchange that
-`make_fl_aggregate` builds sit the benchmark's spans, synchronised in
+the step that `make_fl_train_step` builds and the exchange (the callable
+`make_fl_aggregate` builds, or `hierarchy.hierarchical_sync_aggregate`,
+both hops, through fog cells) sit the benchmark's spans, synchronised in
 the traced run only (the program itself synchronises after every step).
 Set-up is the process start, the weights and the first `warm_steps`
-steps (two exchange rounds: every shape and kernel the window runs, and
-the steps the reference follows).  The window opens at the next step's
-call, after one synchronise, and closes at the first call after a whole
-exchange round that ends past `--seconds`, after another; the step
-wrapper then raises `WindowClosed`, which ends `main`.  The program's
-readings for the output check are taken on the way: each island's loss
-of the first steps, the first gradient as AdamW got it (its first moment
-after one step over 1 - b1), and the params' change from the initial
-weights after `check_steps` steps, read at the next step's call before
-that step updates them in place."""
+steps (at least two exchange rounds: every shape and kernel the window
+runs, and the steps the reference follows).  The window opens at the
+next step's call, after one synchronise, and closes at the first call
+after a whole exchange round that ends past `--seconds`, after another;
+the step wrapper then raises `WindowClosed`, which ends `main`.  The
+traced run profiles the whole rounds that hold the first two steps
+after 30 % of the window.  The program's readings for the output check
+are taken on the way: each island's loss of the first steps, the first
+gradient as AdamW got it (its first moment after one step over 1 - b1),
+and the params' change from the initial weights after `check_steps`
+steps, read at the next step's call before that step updates them in
+place."""
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
-from portbench import core, gen, judge, roofline, weights
+from portbench import core, gen, judge, weights
 from portbench.reference import fl_train as ref_fl_train
 from portbench.trace import Profiler
+
+#: steps the traced rounds hold at least: the first one's step range
+#: opened before the profiler started, so the second is a whole one
+TRACED_STEPS = 2
+
 
 class WindowClosed(Exception):
     pass
@@ -47,6 +65,7 @@ class Hooks:
         self.t_start = None
         self.t_end = None
         self.prof = None
+        self.prof_from = None
         self.traced = False
 
     # -- the program's globals ------------------------------------------
@@ -76,23 +95,25 @@ class Hooks:
 
     def make_fl_aggregate(self, real_factory):
         def factory(*a, **kw):
-            real = real_factory(*a, **kw)
-
-            def agg(*args):
-                trace = self.run.trace
-                if trace:
-                    self.sync()
-                t0 = core.now()
-                with torch.profiler.record_function("bench.exchange"):
-                    out = real(*args)
-                if trace:
-                    self.sync()
-                    self.rec.add("exchange", t0, core.now(),
-                                 in_window=self.t_start is not None,
-                                 traced=self.prof is not None)
-                return out
-            return agg
+            return self.timed_exchange(real_factory(*a, **kw))
         return factory
+
+    def timed_exchange(self, real):
+        """`real` (one whole exchange) inside the benchmark's span."""
+        def agg(*args, **kw):
+            trace = self.run.trace
+            if trace:
+                self.sync()
+            t0 = core.now()
+            with torch.profiler.record_function("bench.exchange"):
+                out = real(*args, **kw)
+            if trace:
+                self.sync()
+                self.rec.add("exchange", t0, core.now(),
+                             in_window=self.t_start is not None,
+                             traced=self.prof is not None)
+            return out
+        return agg
 
     # -- the step --------------------------------------------------------
     def sync(self):
@@ -114,10 +135,13 @@ class Hooks:
             # a round's end: only its exchange may still run on the card
             if self.run.trace:
                 self.sync()
-            if self.prof is not None:
+            if self.prof is not None and k - self.prof_from >= TRACED_STEPS:
                 self.rec.trace = self.prof.stop()
                 self.prof = None
             if core.now() - self.t_start >= self.run.seconds:
+                if self.prof is not None:     # a window shorter than that
+                    self.rec.trace = self.prof.stop()
+                    self.prof = None
                 self.sync()
                 self.t_end = core.now()
                 self.rec.counters["window_steps"] = k - first
@@ -126,6 +150,7 @@ class Hooks:
                     core.now() - self.t_start >= 0.3 * self.run.seconds:
                 self.prof = Profiler(self.run.device)
                 self.prof.start()
+                self.prof_from = k
                 self.traced = True
         t0 = core.now()
         with torch.profiler.record_function("bench.step"):
@@ -161,31 +186,69 @@ class Hooks:
 
 
 def plan(run) -> dict:
-    """The cell's weight layout and the job's settings."""
+    """The cell's weight layout and the job's settings: the traffic's
+    optimizer and loop, the configuration's loss terms."""
     arch, tr = run.config["as_run"], run.traffic
     hp = tr["optimizer"] | {k: tr[k] for k in (
         "islands", "local_steps", "warm_steps", "check_steps")}
+    hp |= {"fog_cells": tr.get("fog_cells", 1),
+           "overlap": tr.get("overlap", False),
+           "loss_terms": run.config.get("harness", {}).get("loss_terms", {})}
     return {"layout": core.layout(arch["family"]).leaves(arch), "hp": hp}
 
 
-def run(run) -> dict:
-    from repro_torch.launch import train as program
-    from repro_torch.models import build_model
+def model_config(arch: dict):
+    """The program's ModelConfig of `as_run`, every key one of its
+    fields."""
     from repro_torch.models.config import ModelConfig
 
+    unknown = set(arch) - {f.name for f in dataclasses.fields(ModelConfig)}
+    if unknown:
+        raise ValueError(f"as_run keys the program's ModelConfig does not "
+                         f"have: {sorted(unknown)} (what only the harness "
+                         "reads belongs in the configuration's `harness`)")
+    return ModelConfig(**arch)
+
+
+def program_argv(run, hp: dict) -> list:
+    """`launch/train.py`'s flags for the cell."""
+    tr = run.traffic
+    argv = ["--full", "--islands", str(tr["islands"]), "--local-steps",
+            str(tr["local_steps"]), "--compress", tr["compress"],
+            "--batch", str(tr["batch"]), "--seq", str(tr["seq"]),
+            "--lr", str(hp["lr"]), "--steps", str(hp["total_steps"]),
+            "--seed", str(run.seed), "--device", str(run.device)]
+    if "fog_cells" in tr:
+        argv += ["--fog-cells", str(tr["fog_cells"])]
+    if tr.get("overlap"):
+        argv.append("--overlap")
+    return argv
+
+
+def facts(run, layout_leaves) -> dict:
+    """What the readers need of the cell's shapes: the tokens and FLOPs
+    (the family's) a step, and the exchange's quantised elements and rows
+    a hop and its hops (two through fog cells)."""
     arch, tr = run.config["as_run"], run.traffic
+    family = core.layout(arch["family"])
+    P, B, T = tr["islands"], tr["batch"], tr["seq"]
+    return {"tokens_per_step": P * B * T,
+            "train_flops_per_token": family.train_flops_per_token(arch, T),
+            "q8_elements": P * family.n_params(arch),
+            "q8_rows": P * sum(math.prod(s[:-1])
+                               for _, s, _, _ in layout_leaves),
+            "q8_hops": 2 if tr.get("fog_cells", 1) > 1 else 1}
+
+
+def run(run) -> dict:
+    from repro_torch.core import hierarchy
+    from repro_torch.launch import train as program
+    from repro_torch.models import build_model
+
     p = plan(run)
     layout_leaves, hp = p["layout"], p["hp"]
-    family = core.layout(arch["family"])
-    cfg = ModelConfig(**{k: v for k, v in arch.items()
-                         if k != "rms_norm_eps"})
+    cfg = model_config(run.config["as_run"])
     weights.check_against(layout_leaves, build_model(cfg).param_defs())
-    P, B, T = tr["islands"], tr["batch"], tr["seq"]
-    argv = ["--full", "--islands", str(P), "--local-steps",
-            str(tr["local_steps"]), "--compress", tr["compress"],
-            "--batch", str(B), "--seq", str(T), "--lr", str(hp["lr"]),
-            "--steps", str(hp["total_steps"]), "--seed", str(run.seed),
-            "--device", str(run.device)]
     h = Hooks(run, layout_leaves, hp)
     with core.patched(
             program,
@@ -193,26 +256,21 @@ def run(run) -> dict:
             make_token_stream=h.make_token_stream,
             make_fl_train_step=h.make_fl_train_step(
                 program.make_fl_train_step),
-            make_fl_aggregate=h.make_fl_aggregate(program.make_fl_aggregate)):
+            make_fl_aggregate=h.make_fl_aggregate(program.make_fl_aggregate)
+    ), core.patched(hierarchy, hierarchical_sync_aggregate=h.timed_exchange(
+            hierarchy.hierarchical_sync_aggregate)):
         try:
-            program.main(argv, cfg=cfg)
+            program.main(program_argv(run, hp), cfg=cfg)
         except WindowClosed:
             pass
     if h.t_end is None:
         raise RuntimeError("the train loop ended before the window closed")
     rec = run.record
     rec.facts["setup_end"] = h.t_start
+    rec.facts.update(facts(run, layout_leaves))
     steps = rec.counters["window_steps"]
-    tokens = steps * P * B * T
-    secs = h.t_end - h.t_start
-    rec.end_to_end["train_tokens_per_s"] = tokens / secs
-    n_params = family.n_params(arch, input_embedding=False)
-    rec.facts.update(
-        tokens_per_step=P * B * T,
-        train_flops_per_token=roofline.train_flops_per_token(
-            n_params, arch["num_layers"], arch["d_model"], T),
-        q8_elements=P * family.n_params(arch),
-        q8_rows=P * sum(math.prod(s[:-1]) for _, s, _, _ in layout_leaves))
+    rec.end_to_end["train_tokens_per_s"] = (
+        steps * rec.facts["tokens_per_step"] / (h.t_end - h.t_start))
     rec.counters["attempted"] = steps
     rec.counters["failed"] = 0
     if run.device.type == "cuda":
@@ -223,8 +281,11 @@ def run(run) -> dict:
 def reference(run, measured, variant: str = "") -> dict:
     """The reference's readings of the same first steps (after the
     program's state is freed)."""
-    arch, tr = run.config["as_run"], run.traffic
+    tr = run.traffic
     hp = measured["hp"]
+    arch = run.config["as_run"] | {
+        k: v for k, v in run.config.get("harness", {}).items()
+        if k != "loss_terms"}
     model = core.reference(arch["family"])
     w0 = weights.flatten(weights.make(measured["layout"], run.seed,
                                       run.device))

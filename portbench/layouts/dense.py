@@ -2,10 +2,14 @@
 token embedding, untied output projection, a stack of L blocks (RMSNorm,
 attention with optional QKV bias, RMSNorm, gated or plain MLP) and a final
 norm.  Each leaf: (path, shape, init, scale) with init "normal" (times
-`scale` = 1/sqrt(fan_in), 1 for the embedding), "ones" or "zeros"."""
+`scale` = 1/sqrt(fan_in), 1 for the embedding), "ones" or "zeros".  A
+family's layout also gives its training FLOPs a token
+(`train_flops_per_token`), which `mfu.train` divides by."""
 from __future__ import annotations
 
 import math
+
+from portbench import roofline
 
 
 def leaves(arch: dict) -> list[tuple[str, tuple, str, float]]:
@@ -41,3 +45,10 @@ def n_params(arch: dict, *, input_embedding: bool = True) -> int:
             if input_embedding or path != "embed/tok")
     return int(n)
 
+
+def train_flops_per_token(arch: dict, seq: int) -> float:
+    """Every product of a dense block is active for every token: N is the
+    whole tree but the input embedding table, the attention width H D."""
+    return roofline.train_flops_per_token(
+        n_params(arch, input_embedding=False), arch["num_layers"],
+        arch["num_heads"] * arch["head_dim"], seq)

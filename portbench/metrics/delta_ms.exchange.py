@@ -1,6 +1,7 @@
 """The exchange's delta (casts and subtract from the last-sync base) in
-ms: the mean stream time of the program's `exchange.delta` spans.  The
-traced round holds one flat exchange: the mean is of one span."""
+ms: the mean stream time of the program's `exchange.delta` spans, one a
+hop.  The traced rounds hold one flat exchange (`fl-q8`) or two of two
+hops each through fog cells (`fl-fog-e1`): the mean is of a hop."""
 from portbench import program_spans
 
 

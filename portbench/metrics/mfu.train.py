@@ -1,6 +1,9 @@
-"""The window's train steps' share of the bf16 peak: (6 N + 12 L d T) a
-token x the tokens of the window's steps / (their summed step time x
-989e12), N without the input embedding table (`roofline.py`)."""
+"""The window's train steps' share of the bf16 peak: the FLOPs a token
+that the family's layout counts (`layouts/<family>.train_flops_per_token`:
+the active products only, and for a routed layer the experts a token
+reaches on this chip; dense: 6 N + 12 L (H D) T, N without the input
+embedding table, `roofline.py`) x the tokens of the window's steps /
+(their summed step time x 989e12)."""
 from portbench import roofline
 
 

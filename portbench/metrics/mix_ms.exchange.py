@@ -1,7 +1,8 @@
 """The exchange's mix (the mixing contraction, the add to the base, the
 cast and unflatten) in ms: the mean stream time of the program's
-`exchange.mix` spans.  The traced round holds one flat exchange: the
-mean is of one span."""
+`exchange.mix` spans, one a hop.  The traced rounds hold one flat
+exchange (`fl-q8`) or two of two hops each through fog cells
+(`fl-fog-e1`): the mean is of a hop."""
 from portbench import program_spans
 
 

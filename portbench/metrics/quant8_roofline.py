@@ -1,7 +1,9 @@
 """quant8's share of its byte bound over the traced exchanges: the bytes
 a float32 round trip needs (float32 in, int8 and one float32 scale a row
-out, and back, `roofline.quant8_bytes`) / 3.35e12 over the device time of
-the quantize_grouped and dequantize_grouped kernels."""
+out, and back, `roofline.quant8_bytes`) at every hop of each exchange
+(one flat, two through fog cells: the edge hop and the cloud hop each
+quantise every island's delta) / 3.35e12 over the device time of the
+quantize_grouped and dequantize_grouped kernels."""
 from portbench import roofline
 
 
@@ -20,4 +22,5 @@ def read(run):
         return None
     q, dq = roofline.quant8_bytes(rec.facts["q8_elements"],
                                   rec.facts["q8_rows"])
-    return 100.0 * n * (q + dq) / roofline.HBM_BYTES / t
+    hops = n * rec.facts["q8_hops"]
+    return 100.0 * hops * (q + dq) / roofline.HBM_BYTES / t

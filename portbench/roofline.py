@@ -18,10 +18,13 @@ def quant8_bytes(elements: int, rows: int) -> tuple[int, int]:
     return q, dq
 
 
-def train_flops_per_token(n_params: int, n_layers: int, d_model: int,
+def train_flops_per_token(n_active: int, n_layers: int, attn_width: int,
                           seq: int) -> float:
-    """6 N (forward and backward of the matrix products, N without the
-    input embedding table) + 12 L d T (the attention products); remat's
-    recompute is not counted."""
-    return 6.0 * n_params + 12.0 * n_layers * d_model * seq
+    """6 N (forward and backward of the matrix products a token passes
+    through, N the active parameters without the input embedding table)
+    + 12 L (H D) T (the attention products over the query heads' width
+    H D); remat's recompute is not counted.  A family's layout
+    (`layouts/<family>.train_flops_per_token`) says what N and H D are
+    for its blocks."""
+    return 6.0 * n_active + 12.0 * n_layers * attn_width * seq
 

@@ -6,7 +6,11 @@ the float8 control in the program's place, it comes out not correct.
 The limits here are this size's, set as the cell's are between the
 readings of sound runs at this size and the control's: seeds 11-13,
 sound loss under 3e-4, gradient under 1.1e-3, change under 1.5e-2,
-float8 loss 1.3e-3 and more, gradient 5.9e-3 and more."""
+float8 loss 1.3e-3 and more, gradient 5.9e-3 and more.  The fog cell's (two hops after
+every step; with `overlap`, merged one step stale) at this size: seeds 11-13, sound loss
+under 3.6e-4, gradient under 1.1e-3, change under 1.2e-2; float8 loss
+2.5e-3 and more; half batch loss 0.025 and more; both hops left out
+change 0.17 and more."""
 import time
 
 import pytest
@@ -25,12 +29,12 @@ def manifest():
     return core.load_manifest()
 
 
-def _train_cell(manifest):
+def _train_cell(manifest, traffic="fl-q8"):
     cfg = core.config_of(manifest, "qwen1.5-4b-fl8")
     cfg["as_run"].update(num_layers=2, d_model=64, num_heads=4,
                          num_kv_heads=4, head_dim=16, d_ff=128,
                          vocab_size=512)
-    tr = core.traffic_of("fl-q8") | {"batch": 4, "seq": 16}
+    tr = core.traffic_of(traffic) | {"batch": 4, "seq": 16}
     return cfg, tr
 
 
@@ -76,6 +80,14 @@ def _no_exchange(train):
             return stacked
         return agg
     return {"make_fl_aggregate": factory}
+
+
+def _no_fog_exchange(hierarchy):
+    """Both hops left out: every island keeps its own weights (copies, as
+    an exchange's result is)."""
+    def agg(stacked, *a, **kw):
+        return _tree_map(torch.clone, stacked)
+    return {"hierarchical_sync_aggregate": agg}
 
 
 def _loss_altered(train):
@@ -127,3 +139,55 @@ def test_train_control_fails(manifest):
     ok, checks = judge.decide(got[0]["numbers"], TRAIN_LIMITS)
     assert got[0]["who"] == "fp8" and not ok, checks
 
+
+# -- the fog cell: two hops after every step -------------------------------
+
+FOG = "qwen4b-fl-fog-e1-sync"
+
+
+def test_fog_cell_is_correct_when_sound(manifest):
+    out = _execute(manifest, FOG, _train_cell(manifest, "fl-fog-e1-sync"),
+                   TRAIN_LIMITS, 0.3)
+    assert out["correct"], out["checks"]
+    assert out["attempted"] > 0 and out["failed"] == 0
+
+
+@pytest.mark.parametrize("fault", [_state_unchanged, _half_batch,
+                                   _no_fog_exchange, _loss_altered],
+                         ids=["state_unchanged", "half_batch", "no_exchange",
+                              "loss_altered"])
+def test_fog_cell_fails_a_planted_fault(manifest, fault):
+    from repro_torch.core import hierarchy
+    from repro_torch.launch import train
+    module = hierarchy if fault is _no_fog_exchange else train
+    with core.patched(module, **fault(module)):
+        out = _execute(manifest, FOG, _train_cell(manifest, "fl-fog-e1-sync"),
+                       TRAIN_LIMITS, 0.3)
+    assert not out["correct"], out["checks"]
+
+
+def test_fog_control_fails(manifest):
+    cfg, tr = _train_cell(manifest, "fl-fog-e1-sync")
+    got = calibrate.readings(manifest, FOG, [SEED], program=False,
+                             variants=["fp8"], seconds=0.3, device="cpu",
+                             config=cfg, traffic=tr)
+    ok, checks = judge.decide(got[0]["numbers"], TRAIN_LIMITS)
+    assert got[0]["who"] == "fp8" and not ok, checks
+
+
+def test_fog_cell_with_overlap_is_correct_when_sound(manifest):
+    """The exchange merged one step stale (`--overlap`), which the full
+    cell cannot hold in 80 GB: the reference follows the program."""
+    cfg, tr = _train_cell(manifest, "fl-fog-e1-sync")
+    out = _execute(manifest, FOG, (cfg, tr | {"overlap": True}),
+                   TRAIN_LIMITS, 0.3)
+    assert out["correct"], out["checks"]
+
+
+def test_fog_cell_with_overlap_fails_without_the_exchange(manifest):
+    from repro_torch.core import hierarchy
+    cfg, tr = _train_cell(manifest, "fl-fog-e1-sync")
+    with core.patched(hierarchy, **_no_fog_exchange(hierarchy)):
+        out = _execute(manifest, FOG, (cfg, tr | {"overlap": True}),
+                       TRAIN_LIMITS, 0.3)
+    assert not out["correct"], out["checks"]

@@ -1,7 +1,7 @@
 """The readers of the program's spans: medians over complete steps only,
 launches and synchronisations counted inside complete step ranges only,
 nothing where the program recorded nothing, and the seven metrics in the
-line of a traced run of the training cell on the CPU."""
+line of a traced run of each training cell on the CPU."""
 import itertools
 import math
 import time
@@ -98,19 +98,14 @@ def test_nothing_to_read_gives_nothing(name, monkeypatch):
         assert core.metric_reader(name)(run) is None
 
 
-def test_a_traced_run_reports_the_seven_metrics(monkeypatch):
-    """The training cell at a test's size on the CPU, traced: the span
-    metrics read the profiled round, the counts its step range (no kernel
-    launch on the CPU).  The harness's clock ticks 0.1 s a reading, so the
-    window opens, profiles a round and closes at the same steps however
-    fast the host runs."""
+def _traced_cell(monkeypatch, wname, traffic, seconds):
     manifest = core.load_manifest()
     prun._environment()
     spans.reset()
     ticks = itertools.count()
     monkeypatch.setattr(core, "now", lambda: 0.1 * next(ticks))
-    cfg, tr = _train_cell(manifest)
-    out = prun.execute(manifest, "qwen4b-fl-q8", seed=SEED, seconds=1.0,
+    cfg, tr = _train_cell(manifest, traffic)
+    out = prun.execute(manifest, wname, seed=SEED, seconds=seconds,
                        trace=True, device="cpu", t0=time.perf_counter(),
                        config=cfg, traffic=tr, limits=TRAIN_LIMITS)
     spans.reset()
@@ -120,3 +115,23 @@ def test_a_traced_run_reports_the_seven_metrics(monkeypatch):
         assert m[name]["value"] > 0, name
     for name in TRACE_METRICS:
         assert m[name]["value"] == 0, name
+    return m
+
+
+def test_a_traced_run_reports_the_seven_metrics(monkeypatch):
+    """The training cell at a test's size on the CPU, traced: the span
+    metrics read the profiled round, the counts its step range (no kernel
+    launch on the CPU).  The harness's clock ticks 0.1 s a reading, so the
+    window opens, profiles a round and closes at the same steps however
+    fast the host runs."""
+    _traced_cell(monkeypatch, "qwen4b-fl-q8", "fl-q8", 1.0)
+
+
+def test_a_traced_fog_run_reports_the_seven_metrics(monkeypatch):
+    """The same of the fog cell, whose rounds are of one step: the traced
+    rounds are the two that hold two steps, so one step range is whole,
+    and the window is longer, to close after them.  Its exchange span
+    wraps both hops."""
+    m = _traced_cell(monkeypatch, "qwen4b-fl-fog-e1-sync",
+                     "fl-fog-e1-sync", 2.0)
+    assert m["exchange_ms"]["value"] > 0
